@@ -1,0 +1,49 @@
+"""matchering_tpu_torch — audio matching & mastering on PyTorch and CUDA.
+
+The PyTorch port of ``matchering_tpu``: given a TARGET track and a mastered
+REFERENCE track, it produces a mastered TARGET with the reference's RMS,
+frequency response, peak amplitude and stereo width.  It imports nothing
+of the JAX package.
+
+    import matchering_tpu_torch as mg
+    mg.process(target="song.wav", reference="ref.wav",
+               results=[mg.pcm16("out.wav")])
+
+Entry points run on ``cuda`` unless given ``device=``; with no card they
+raise.  ``limit`` runs on its tensor's device.  On CUDA the limiter runs
+two hand-written kernels (``matchering_tpu_torch.kernels``).
+"""
+
+__version__ = "0.1.0"
+__title__ = "matchering_tpu_torch"
+
+from .checker import check, check_equality
+from .config import Config, LimiterConfig
+from .core import process
+from .io import load, save
+from .limiter import limit
+from .log import Code, ModuleError
+from .log import set_handlers as log
+from .results import Result, pcm16, pcm24, pcm32f
+from .stages import MasterOutput, master, master_graph
+
+__all__ = [
+    "Code",
+    "Config",
+    "LimiterConfig",
+    "MasterOutput",
+    "ModuleError",
+    "Result",
+    "check",
+    "check_equality",
+    "limit",
+    "load",
+    "log",
+    "master",
+    "master_graph",
+    "pcm16",
+    "pcm24",
+    "pcm32f",
+    "process",
+    "save",
+]

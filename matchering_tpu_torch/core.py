@@ -1,0 +1,99 @@
+"""Single-pair mastering entry point (PyTorch port).
+
+Counterpart of ``matchering_tpu.core.process`` (reference
+``matchering/core.py:32-121``): decode and condition both WAV tracks, run
+``stages.main`` on the device, and encode the requested output variants.
+The coded event stream and the validation rules are the JAX package's.
+Previews are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+from .checker import check, check_equality
+from .config import Config
+from .io import load, save
+from .log import Code, ModuleError, debug, debug_line, info
+from .results import Result
+from .stages import main as stages_main
+from .utils import resolve_device
+
+
+def _ingest(path: str, role: str, config: Config, device):
+    """Decode one file and condition it.  Integer-PCM WAV keeps its raw
+    int16/int32 payload (``raw_int=True``): that is what crosses to the
+    device, which converts it (``ops.basics.to_working_float``)."""
+    audio, rate = load(path, role, raw_int=True)
+    return check(audio, rate, config, role, device=device)
+
+
+def _assert_graph_ready(tracks, config: Config) -> None:
+    """Post-conditioning invariants the graph relies on (reference
+    ``core.py:69-74``); a violation is a bug, hence the generic code."""
+    for audio, rate in tracks:
+        ready = (
+            rate == config.internal_sample_rate
+            and audio.ndim == 2
+            and audio.shape[1] == 2
+            and audio.shape[0] > config.fft_size
+        )
+        if not ready:
+            raise ModuleError(Code.ERROR_VALIDATION)
+
+
+def _variant_key(result: Result) -> str:
+    if result.use_limiter:
+        return "limited"
+    return "normalized" if result.normalize else "raw"
+
+
+def process(
+    target: str,
+    reference: str,
+    results: List[Result],
+    config: Config = Config(),
+    device=None,
+) -> None:
+    """Master the WAV ``target`` against the WAV ``reference`` and write
+    each of ``results``.  Runs on ``device`` (``cuda`` unless named; raises
+    if there is no card rather than falling back to the CPU)."""
+    debug("matchering_tpu_torch — audio matching & mastering on PyTorch")
+    debug_line()
+    device = resolve_device(device)
+    info(Code.INFO_LOADING)
+
+    if isinstance(results, Result):
+        results = [results]
+    if not results:
+        raise RuntimeError("The result list is empty")
+
+    target_track = _ingest(target, "target", config, device)
+    reference_track = _ingest(reference, "reference", config, device)
+
+    if not config.allow_equality:
+        check_equality(target_track[0], reference_track[0])
+    _assert_graph_ready((target_track, reference_track), config)
+
+    wanted = {_variant_key(r) for r in results}
+    limited, raw, normalized = stages_main(
+        target_track[0],
+        reference_track[0],
+        config,
+        need_default="limited" in wanted,
+        need_no_limiter="raw" in wanted,
+        need_no_limiter_normalized="normalized" in wanted,
+        device=device,
+    )
+    variants = {"limited": limited, "raw": raw, "normalized": normalized}
+
+    debug_line()
+    info(Code.INFO_EXPORTING)
+    for result in results:
+        audio = variants[_variant_key(result)].cpu().numpy().astype(np.float64)
+        save(result.file, audio, config.internal_sample_rate, result.subtype)
+
+    debug_line()
+    info(Code.INFO_COMPLETED)

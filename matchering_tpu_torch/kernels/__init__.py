@@ -1,0 +1,10 @@
+"""The port's hand-written CUDA kernels and their plain PyTorch twins.
+
+* ``envelope`` — K1, the limiter front end (``csrc/envelope.cu``);
+* ``scan`` — K2, the first-order IIR scan (``csrc/scan.cu``).
+
+Each wrapper runs its plain twin for a CPU tensor and launches its kernel
+for a CUDA tensor, raising if it cannot; it never falls back from one to
+the other.  Each keeps a launch count, ``LAUNCHES``, raised by one per call
+that launches the kernel.
+"""

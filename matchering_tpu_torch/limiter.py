@@ -1,0 +1,67 @@
+"""Hyrax brickwall limiter (PyTorch + kernels K1 and K2).
+
+Counterpart of ``matchering_tpu.limiter.limit`` on its static path
+(reference ``matchering/limiter/hyrax.py:32-99``): hard-clip gain from the
+cross-channel peak, attack stage (centred sliding max + zero-phase
+one-pole smoothing), hold/release stage (causal sliding max + first-order
+Butterworth low-passes), final gain = 1 - max of the three envelopes.
+
+On every device the front end (gain and attack sliding max) is
+``kernels.envelope.limiter_front_end``: K1 on CUDA, its plain twin on the
+CPU.  The four IIR passes go through K2 (``ops.iir``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import Config
+from .kernels import envelope
+from .ops import basics, iir, sliding
+from .utils import ms_to_samples
+
+
+def _release_stage(slided_attack: torch.Tensor, config: Config) -> torch.Tensor:
+    """Causal hold max + hold/release Butterworth low-passes
+    (reference ``hyrax.py:56-75``)."""
+    fs = config.internal_sample_rate
+    hold = ms_to_samples(config.limiter.hold, fs)
+    slided = sliding.sliding_max_hold(slided_attack, hold)
+    hold_out = iir.butter_lowpass(
+        config.limiter.hold_filter_order,
+        config.limiter.hold_filter_coefficient,
+        fs,
+        slided,
+    )
+    release_out = iir.butter_lowpass(
+        config.limiter.release_filter_order,
+        config.limiter.release_filter_coefficient / config.limiter.release,
+        fs,
+        torch.maximum(slided, hold_out),
+    )
+    return torch.maximum(hold_out, release_out)
+
+
+def limit(array: torch.Tensor, config: Config) -> torch.Tensor:
+    """Brickwall-limit a stereo (n, 2) tensor at ``config.threshold`` on
+    the tensor's own device.
+
+    The reference's early-out (``hyrax.py:83-85``: nothing exceeds the
+    threshold within ``np.isclose`` tolerance, so the input passes through)
+    stays branch-free, a ``torch.where`` on the device with no host sync.
+    It reads K1's gain: |rectified - 1| <= tol  <=>  gain <= tol/(1+tol),
+    since rectified >= 1 and gain = 1 - 1/rectified is monotone."""
+    if not isinstance(array, torch.Tensor):
+        array = torch.as_tensor(array)
+    tolerance = 1e-8 + 1e-5 * 1.0  # np.isclose defaults (hyrax.py:83)
+    attack = ms_to_samples(config.limiter.attack, config.internal_sample_rate)
+    gain_hard_clip, slided = envelope.limiter_front_end(
+        array.contiguous(), config.threshold, attack
+    )
+    smoother = iir.one_pole_filter(config.limiter.attack_filter_coefficient, attack)
+    gain_attack = iir.filtfilt_first_order(smoother, slided)
+    gain_release = _release_stage(slided, config)
+    not_needed = torch.all(gain_hard_clip <= tolerance / (1.0 + tolerance))
+
+    gain = basics.flip(basics.max_mix(gain_hard_clip, gain_attack, gain_release))
+    return torch.where(not_needed, array, array * gain[:, None])

@@ -1,0 +1,25 @@
+"""Linear-phase FIR synthesis from a magnitude curve (PyTorch).
+
+Reference ``matchering/stage_helpers/match_frequencies.py:98-99``:
+``fir = ifftshift(irfft(curve)) * hann(len(fir))``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def hann_symmetric(n: int, dtype, device) -> torch.Tensor:
+    """``scipy.signal.windows.hann(n)`` (symmetric):
+    0.5 - 0.5*cos(2*pi*k/(n-1))."""
+    k = torch.arange(n, dtype=dtype, device=device)
+    return 0.5 - 0.5 * torch.cos(2.0 * math.pi * k / (n - 1))
+
+
+def fir_from_magnitude(curve: torch.Tensor, fft_size: int) -> torch.Tensor:
+    """Magnitude curve (fft_size//2+1,) -> windowed linear-phase FIR
+    (fft_size,)."""
+    impulse = torch.fft.ifftshift(torch.fft.irfft(curve, n=fft_size))
+    return impulse * hann_symmetric(fft_size, impulse.dtype, impulse.device)

@@ -1,0 +1,99 @@
+"""Matching-curve smoothing: lin->log resample, LOWESS, log->lin resample.
+
+Counterpart of ``matchering_tpu.ops.smoothing`` (reference
+``matchering/stage_helpers/match_frequencies.py:45-75``).  Both cubic-spline
+resamplings interpolate between static frequency grids, so each is a dense
+linear operator built once on the host in float64 (scipy's ``interp1d``
+applied to the identity).  The ``it=0`` LOWESS smoother is linear too
+(``lowess.linear_operator``), and is folded in on the host:
+``to_log' = F @ to_log`` and ``to_lin' = to_lin @ W``.  The device then
+smooths a curve with two matmuls.
+
+Boundary semantics kept: the smoothed curve's DC bin is zeroed and bin 1
+keeps its unsmoothed value (``match_frequencies.py:73-74``).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import lowess
+
+
+@functools.lru_cache(maxsize=8)
+def _grids(sample_rate: int, fft_size: int, oversampling: int) -> Tuple[np.ndarray, np.ndarray]:
+    nyquist = sample_rate * 0.5
+    grid_linear = nyquist * np.linspace(0, 1, fft_size // 2 + 1)
+    grid_logarithmic = nyquist * np.logspace(
+        np.log10(4 / fft_size), 0, (fft_size // 2) * oversampling + 1
+    )
+    return grid_linear, grid_logarithmic
+
+
+@functools.lru_cache(maxsize=8)
+def interpolation_operators(
+    sample_rate: int, fft_size: int, oversampling: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(lin->log, log->lin) dense cubic-interpolation matrices (float64),
+    scipy's ``interp1d(kind="cubic")`` evaluated on the identity."""
+    from scipy import interpolate
+
+    grid_linear, grid_logarithmic = _grids(sample_rate, fft_size, oversampling)
+    nl = grid_linear.shape[0]
+    ng = grid_logarithmic.shape[0]
+
+    to_log = interpolate.interp1d(grid_linear, np.eye(nl), "cubic", axis=0)(
+        grid_logarithmic
+    )  # (ng, nl)
+    to_lin = interpolate.interp1d(
+        grid_logarithmic, np.eye(ng), "cubic", axis=0, fill_value="extrapolate"
+    )(grid_linear)  # (nl, ng)
+    return np.ascontiguousarray(to_log), np.ascontiguousarray(to_lin)
+
+
+@functools.lru_cache(maxsize=8)
+def folded_operators(
+    sample_rate: int, fft_size: int, oversampling: int, frac: float, delta: float
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The interpolation operators with the ``it=0`` LOWESS folded in
+    (float64 numpy): ``(F @ to_log, to_lin @ W)``."""
+    to_log, to_lin = interpolation_operators(sample_rate, fft_size, oversampling)
+    W, F = lowess.linear_operator(to_log.shape[0], float(frac), float(delta))
+    return F @ to_log, to_lin @ W
+
+
+def host_operators_for_config(config) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`folded_operators` for a ``Config``.  Raises for the
+    configurations whose smoother is not a fixed linear map or whose dense
+    form is not ported (``lowess_it > 0``, ``lowess_exact``)."""
+    if config.lowess_it != 0:
+        raise NotImplementedError("lowess_it > 0 is not ported yet")
+    if config.lowess_exact or config.lowess_delta <= 0:
+        raise NotImplementedError("exact LOWESS (delta = 0) is not ported yet")
+    return folded_operators(
+        config.internal_sample_rate,
+        config.fft_size,
+        config.lin_log_oversampling,
+        config.lowess_frac,
+        config.lowess_delta,
+    )
+
+
+def smooth_exponentially(
+    matching_fft: torch.Tensor, operators: Tuple[torch.Tensor, torch.Tensor]
+) -> torch.Tensor:
+    """Smooth a matching spectrum (fft_size//2 + 1,) on the log grid with
+    the folded ``(to_log, to_lin)`` operator pair on its device.
+
+    The caller keeps float32 matmuls at full precision
+    (``torch.backends.cuda.matmul.allow_tf32 = False``, set in
+    ``stages.master``): TF32 keeps about three decimal digits."""
+    to_log, to_lin = operators
+    filtered = to_lin @ (to_log @ matching_fft)
+    filtered[0] = 0.0
+    filtered[1] = matching_fft[1]
+    return filtered

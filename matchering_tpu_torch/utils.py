@@ -1,0 +1,50 @@
+"""Host-side scalar helpers (reference ``matchering/utils.py:28-59``) and the
+port's device rules."""
+
+from __future__ import annotations
+
+import math
+from datetime import timedelta
+
+
+def to_db(value: float) -> str:
+    return f"{20 * math.log10(value):.4f} dB"
+
+
+def ms_to_samples(value: float, sample_rate: int) -> int:
+    return int(sample_rate * value * 1e-3)
+
+
+def make_odd(value: int) -> int:
+    return value if value & 1 else value + 1
+
+
+def time_str(length: int, sample_rate: int) -> str:
+    return str(timedelta(seconds=length // sample_rate))
+
+
+def resolve_device(device=None):
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another.  Never falls back to the CPU: without a card the default
+    raises."""
+    import torch
+
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def to_device(array, device):
+    """Host array or tensor -> tensor on ``device``.  Integer PCM keeps its
+    integer dtype, so raw int16 crosses to the card at half the bytes of
+    float32; a read-only buffer (a decoded file) is copied first, since a
+    tensor may not share read-only memory."""
+    import numpy as np
+    import torch
+
+    if isinstance(array, torch.Tensor):
+        return array.to(device)
+    return torch.from_numpy(np.require(array, requirements=["C", "W"])).to(device)

@@ -1,0 +1,161 @@
+"""The PyTorch port's slice end to end against the JAX package, on the CPU.
+
+``master`` at float64 must match the JAX ``master`` at float64 to >= 200 dB
+SNR for all three variants (float64 rounding apart, the two compute the
+same chain), and the port's float32 output must stay above the JAX
+package's own float32 gate of 95 dB (tests/test_dtype_gates.py).
+``process()`` on a WAV pair must write PCM_16 samples within 1 LSB of
+``matchering_tpu.process`` and emit the same coded events.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import matchering_tpu as mj
+import matchering_tpu_torch as mt
+from matchering_tpu.io import wav as jwav
+from matchering_tpu_torch import state
+
+SR = 44100
+VARIANTS = ("result", "result_no_limiter", "result_no_limiter_normalized")
+ALL = dict(need_default=True, need_no_limiter=True, need_no_limiter_normalized=True)
+
+
+def make_pair(seconds, seed):
+    r = np.random.RandomState(seed)
+    n = seconds * SR
+    env = 0.5 + 0.5 * np.sin(np.arange(n) / SR * 1.3)[:, None]
+    target = np.clip(0.3 * r.randn(n, 2) * env, -1, 1)
+    reference = np.clip(0.9 * r.randn(n, 2) * env, -1, 1)
+    return target, reference
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return make_pair(8, 5)
+
+
+@pytest.fixture(scope="module")
+def jax_f64(pair):
+    config = mj.Config(dtype="float64", max_piece_size=2)  # 5 pieces per track
+    out = mj.master(jnp.asarray(pair[0]), jnp.asarray(pair[1]), config, **ALL)
+    return config, {k: np.asarray(getattr(out, k)) for k in VARIANTS}
+
+
+@pytest.fixture(scope="module")
+def port_f64(pair, jax_f64):
+    config = state.config_from_dict(dataclasses.asdict(jax_f64[0]))
+    out = mt.master(pair[0], pair[1], config, device="cpu", **ALL)
+    return {k: getattr(out, k).numpy() for k in VARIANTS}
+
+
+@pytest.fixture(scope="module")
+def port_f32(pair):
+    out = mt.master(pair[0], pair[1], mt.Config(max_piece_size=2), device="cpu", **ALL)
+    return {k: getattr(out, k) for k in VARIANTS}
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_master_float64_matches_jax(jax_f64, port_f64, snr, variant):
+    assert port_f64[variant].shape == jax_f64[1][variant].shape
+    measured = snr(jax_f64[1][variant], port_f64[variant])
+    assert measured >= 200.0, measured
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_master_float32_above_jax_gate(jax_f64, port_f32, snr, variant):
+    assert port_f32[variant].dtype == torch.float32
+    measured = snr(jax_f64[1][variant], port_f32[variant].numpy())
+    assert measured > 95.0, measured
+
+
+def test_limit_matches_jax(rng):
+    config = mj.Config(dtype="float64")
+    loud = rng.randn(30_000, 2) * 0.8  # many samples over the threshold
+    got = mt.limit(torch.from_numpy(loud), state.config_from_dict(dataclasses.asdict(config)))
+    want = np.asarray(mj.limit(jnp.asarray(loud), config))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10)
+    quiet = torch.from_numpy(rng.randn(30_000, 2) * 0.1)
+    assert torch.equal(mt.limit(quiet, mt.Config(dtype="float64")), quiet)
+
+
+def _events(package):
+    events = []
+    package.log(info_handler=events.append, warning_handler=events.append, show_codes=True)
+    return events
+
+
+def test_process_wav_matches_jax_within_one_lsb(tmp_path):
+    target, reference = make_pair(5, 9)
+    jwav.write(str(tmp_path / "t.wav"), target, SR, "PCM_16")
+    jwav.write(str(tmp_path / "r.wav"), reference, SR, "PCM_16")
+    try:
+        jax_events = _events(mj)
+        mj.process(
+            str(tmp_path / "t.wav"), str(tmp_path / "r.wav"),
+            [mj.pcm16(str(tmp_path / "jax.wav"))], mj.Config(dtype="float64"),
+        )
+        port_events = _events(mt)
+        mt.process(
+            str(tmp_path / "t.wav"), str(tmp_path / "r.wav"),
+            [mt.pcm16(str(tmp_path / "port.wav"))], mt.Config(dtype="float64"),
+            device="cpu",
+        )
+    finally:
+        mj.log()
+        mt.log()
+    jax_out, jax_rate = jwav.read(str(tmp_path / "jax.wav"), raw_int=True)
+    port_out, port_rate = jwav.read(str(tmp_path / "port.wav"), raw_int=True)
+    assert port_rate == jax_rate == SR
+    assert port_out.dtype == np.int16 and port_out.shape == jax_out.shape
+    assert np.max(np.abs(port_out.astype(np.int32) - jax_out)) <= 1
+    assert port_events == jax_events
+
+
+def test_process_without_device_raises_when_cuda_is_absent(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mt.process("t.wav", "r.wav", [mt.pcm16(str(tmp_path / "o.wav"))])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mt.master(np.zeros((5000, 2)), np.zeros((5000, 2)), mt.Config())
+
+
+def test_non_wav_input_raises_coded_error(tmp_path):
+    (tmp_path / "t.flac").write_bytes(b"fLaC" + bytes(64))
+    with pytest.raises(mt.ModuleError) as error:
+        mt.load(str(tmp_path / "t.flac"), "target")
+    assert error.value.code == mt.Code.ERROR_TARGET_LOADING
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys, matchering_tpu_torch; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'matchering_tpu')]; "
+        "assert not bad, bad"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=repo, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """Without CUDA (or without the package beside it) the smoke script
+    exits non-zero and prints no result line."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(repo, "chip_smoke.py")
+    lonely = tmp_path / "chip_smoke.py"
+    lonely.write_bytes(open(script, "rb").read())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for path, cwd in ((script, repo), (str(lonely), str(tmp_path))):
+        run = subprocess.run(
+            [sys.executable, path], cwd=cwd, env=env, capture_output=True, text=True,
+            timeout=120,
+        )
+        assert run.returncode != 0
+        assert '"ok"' not in run.stdout
