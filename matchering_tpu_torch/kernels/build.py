@@ -4,15 +4,18 @@ Every ``*.cu`` file under ``matchering_tpu_torch/csrc`` is compiled by
 ``nvcc`` for ``sm_90a`` (one process per source, all started together),
 linked into one shared library with a plain C interface, and loaded with
 ``ctypes``.  The build runs at the first launch, into
-``matchering_tpu_torch/_build/``, keyed by a hash of the sources, so a
-changed source rebuilds and an unchanged one loads the existing library.
-Importing this module needs no ``nvcc``.
+``matchering_tpu_torch/_build/``, keyed by a hash of the sources and the
+shared ``*.cuh`` headers, so a changed source rebuilds and an unchanged one
+loads the existing library.  On loading, the kernels' tiling constants are
+checked once against the wrappers' Python copies.  Importing this module
+needs no ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -36,20 +39,32 @@ _I = ctypes.c_int
 # C signatures: name -> (restype, argtypes)
 _SIGNATURES = {
     "mtpu_envelope_max_halo": (_I, []),
+    "mtpu_envelope_tile": (_I, []),
     "mtpu_envelope_f32": (_I, [_P, _P, _P, _LL, _D, _I, _P]),
     "mtpu_envelope_f64": (_I, [_P, _P, _P, _LL, _D, _I, _P]),
-    "mtpu_scan_scratch": (_LL, [_LL, _LL]),
-    "mtpu_scan_f32": (_I, [_P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P]),
-    "mtpu_scan_f64": (_I, [_P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P]),
+    "mtpu_scan_run": (_I, []),
+    "mtpu_scan_tile": (_I, []),
+    "mtpu_scan_powers": (_I, []),
+    "mtpu_scan_f32": (_I, [_P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P]),
+    "mtpu_scan_f64": (_I, [_P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P]),
+}
+
+# C constants the Python wrappers mirror: C function -> (module, attribute)
+_CONSTANTS = {
+    "mtpu_envelope_max_halo": ("envelope", "MAX_HALO"),
+    "mtpu_envelope_tile": ("envelope", "TILE"),
+    "mtpu_scan_run": ("scan", "RUN"),
+    "mtpu_scan_tile": ("scan", "TILE"),
+    "mtpu_scan_powers": ("scan", "POWERS"),
 }
 
 _library = None  # the loaded ctypes.CDLL, once built
 build_seconds = None  # wall time of this process's build, None if loaded
 
 
-def sources():
+def sources(suffixes=(".cu",)):
     return sorted(
-        os.path.join(CSRC, name) for name in os.listdir(CSRC) if name.endswith(".cu")
+        os.path.join(CSRC, name) for name in os.listdir(CSRC) if name.endswith(suffixes)
     )
 
 
@@ -104,17 +119,22 @@ def library() -> ctypes.CDLL:
     global _library, build_seconds
     if _library is not None:
         return _library
-    paths = sources()
-    target = os.path.join(BUILD_DIR, f"libmtpu_kernels_{_source_hash(paths)}.so")
+    digest = _source_hash(sources((".cu", ".cuh")))
+    target = os.path.join(BUILD_DIR, f"libmtpu_kernels_{digest}.so")
     if not os.path.exists(target):
         start = time.perf_counter()
-        _compile(paths, target)
+        _compile(sources(), target)
         build_seconds = time.perf_counter() - start
     lib = ctypes.CDLL(target)
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes
+    for name, (module, attribute) in _CONSTANTS.items():
+        want = getattr(importlib.import_module(f"{__package__}.{module}"), attribute)
+        got = getattr(lib, name)()
+        if got != want:
+            raise RuntimeError(f"{name}() is {got}, but {module}.{attribute} is {want}")
     _library = lib
     return lib
 

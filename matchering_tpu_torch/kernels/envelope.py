@@ -17,10 +17,24 @@ from . import build
 
 LAUNCHES = 0  # calls that launched the CUDA kernel
 
+# the kernel's tiling (csrc/envelope.cu: kRun, kTile, kMaxHalo)
+RUN = 32  # outputs per thread
+TILE = RUN * 256  # outputs per block of 256 threads
+MAX_HALO = 2048  # window - 1 may not exceed this
+
 
 def window_for(attack: int) -> int:
     """Centred attack window, ``2*make_odd(attack) - 1`` samples."""
     return 2 * make_odd(attack) - 1
+
+
+def check_window(n: int, window: int) -> None:
+    """Raise ValueError where the window does not fit the kernel's halo or
+    the track is shorter than the window."""
+    if window < 1 or window - 1 > MAX_HALO:
+        raise ValueError(f"attack window {window} does not fit the kernel's halo of {MAX_HALO}")
+    if n < window:
+        raise ValueError(f"track of {n} samples is shorter than the attack window {window}")
 
 
 def limiter_front_end_plain(
@@ -49,11 +63,8 @@ def limiter_front_end(
         raise ValueError("the stereo tensor must be contiguous")
     n = array.shape[0]
     window = window_for(attack)
+    check_window(n, window)
     lib = build.library()
-    if window - 1 > lib.mtpu_envelope_max_halo():
-        raise ValueError(f"attack window {window} does not fit the kernel's halo")
-    if n < window:
-        raise ValueError(f"track of {n} samples is shorter than the attack window {window}")
 
     global LAUNCHES
     gain = torch.empty(n, dtype=array.dtype, device=array.device)

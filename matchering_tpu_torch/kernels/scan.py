@@ -10,13 +10,47 @@ pole and the coefficients are float64 on both paths, whatever the I/O type.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import Tuple
+
 import torch
 
 from . import build
 
 LAUNCHES = 0  # calls that launched the CUDA kernel
 
+# the kernel's tiling (csrc/scan.cu: kRun, kTileLog, kTile, kPowers)
+RUN = 16  # consecutive scan positions per thread
+TILE_LOG = 8  # 2**TILE_LOG threads per block
+TILE = RUN << TILE_LOG  # scan positions per block
+# pole**(RUN * 2**k) for k < POWERS: the thread shuffles (k < 5), the warps
+# (5 <= k < TILE_LOG), the tiles of look-back (TILE_LOG <= k < TILE_LOG + 5)
+# and a look-back step of 32 tiles (the last)
+POWERS = TILE_LOG + 6
+
 _PLAIN_BLOCK = 256
+
+
+def scratch_words(rows: int, n: int) -> int:
+    """8-byte words of zeroed scratch a call over (rows, n) needs: an
+    aggregate and an inclusive prefix per (row, tile of TILE samples), and
+    a tile counter."""
+    return 2 * rows * -(-n // TILE) + 1
+
+
+@functools.lru_cache(maxsize=64)
+def pole_powers(pole: float) -> Tuple[float, ...]:
+    """``pole**(RUN * 2**k)`` for k < POWERS, in float64, each one ``pow``
+    (repeated squaring would compound its rounding 2**k times)."""
+    return tuple(pole ** (RUN << k) for k in range(POWERS))
+
+
+@functools.lru_cache(maxsize=64)
+def _powers_array(pole: float):
+    """``pole_powers(pole)`` as the C array the kernel's entry point copies
+    from (read on the host before the launch returns, so one can be shared)."""
+    return (ctypes.c_double * POWERS)(*pole_powers(pole))
 
 
 def _blocked_scan(drive: torch.Tensor, pole: float) -> torch.Tensor:
@@ -96,15 +130,14 @@ def first_order_filter(
     global LAUNCHES
     lib = build.library()
     y = torch.empty_like(x)
-    scratch = torch.empty(
-        max(lib.mtpu_scan_scratch(rows, n), 1), dtype=torch.float64, device=x.device
-    )
+    scratch = torch.zeros(scratch_words(rows, n), dtype=torch.int64, device=x.device)
+    powers = _powers_array(-float(a1))
     fn = lib.mtpu_scan_f32 if x.dtype == torch.float32 else lib.mtpu_scan_f64
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = fn(
-            x.data_ptr(), y.data_ptr(), zi_ptr, rows, n,
-            float(b0), float(b1), float(a1), int(reverse), scratch.data_ptr(), stream,
+            x.data_ptr(), y.data_ptr(), zi_ptr, rows, n, float(b0), float(b1), float(a1),
+            int(reverse), ctypes.addressof(powers), scratch.data_ptr(), stream,
         )
     build.check(status, "scan kernel")
     LAUNCHES += 1
