@@ -29,7 +29,16 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    each K2 call must be a single kernel;
 5. compares ``master`` on the card (float32) with the port's own
    ``master`` on the CPU at float64 on a 30 s pair: at least 95 dB SNR;
-6. prints one JSON line of per-kernel numbers, then, last, the device line
+6. the user path: writes a 180 s PCM_16 target at 44.1 kHz and a 180 s
+   PCM_24 reference at 48 kHz; holds the float64 resampler on the card
+   against the same call on the CPU (max abs error 1e-12) and times it and
+   its matrix product beside their flop and byte bounds; runs
+   ``process()`` twice (cold, warm) with both previews and a PCM_24 AIFF
+   result, counting kernel launches, and prints the warm run's timeline;
+   checks that the preview window chosen on the card is the one the CPU
+   chooses on the card's result; runs ``python3 -m matchering_tpu_torch``
+   on the pair and checks its outputs;
+7. prints one JSON line of per-kernel numbers, then, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code and no device line.
@@ -53,10 +62,14 @@ SNR_GATE_DB = 95.0  # the JAX package's float32 gate (tests/test_dtype_gates.py)
 SCAN_TOL = 2.0**-23  # one float32 ulp at 1.0: the two differ only in the final rounding
 SCAN_REL_TOL_F64 = 1e-12  # float64: the kernel and the twin combine their spans in other orders
 SEED = 20260
-# H100 peaks (NVIDIA data sheet, SXM part; the PCIe part's memory is slower)
+USER_RATE = 48000  # the user path's reference rate (video and DAW exports)
+RESAMPLE_TOL = 1e-12  # float64 on both: the two sum the product in other orders
+PCM24_LSB = 2.0**-23
+# H100 peaks (NVIDIA data sheet, SXM part; the PCIe part is slower)
 HBM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
 F32_FLOPS = 67e12  # float32 outside the tensor cores
 F64_FLOPS = 34e12  # float64 outside the tensor cores
+F64_TENSOR_FLOPS = {"sxm": 67e12, "pcie": 51e12}  # float64 on the tensor cores (DGEMM)
 
 
 def fail(message: str) -> None:
@@ -103,6 +116,113 @@ def snr_db(reference, test) -> float:
     return 10.0 * np.log10(float(np.sum(reference * reference)) / denom)
 
 
+def user_path(mt, torch, device, config, here, cuda_ms, run_process, bandwidth, f64_flops):
+    """Phase 6: the inputs and outputs users send (see the module's
+    docstring).  Returns the phase's numbers; fails on any mismatch."""
+    from matchering_tpu_torch import preview
+    from matchering_tpu_torch.io import codecs, wav
+    from matchering_tpu_torch.ops import resample
+
+    numbers = {"reference_rate": USER_RATE, "audio_seconds": FULL_SECONDS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_user_") as tmp:
+        path = {
+            name: os.path.join(tmp, name)
+            for name in ("t.wav", "r48.wav", "master.aiff", "pt.wav", "pr.wav", "cli.wav", "cli_pr.wav")
+        }
+        target, _ = make_pair(FULL_SECONDS, SR, SEED + 2)
+        wav.write(path["t.wav"], target, SR, "PCM_16")
+        _, reference = make_pair(FULL_SECONDS, USER_RATE, SEED + 2)
+        wav.write(path["r48.wav"], reference, USER_RATE, "PCM_24")
+        del target, reference
+
+        # the resampler on the card against the same call on the CPU, on the
+        # staged PCM_24 codes (int32), which convert on the device
+        reference_pcm, rate = mt.load(path["r48.wav"], "reference", tmp, True)
+        require(rate == USER_RATE and reference_pcm.dtype == np.int32,
+                f"the 48 kHz reference decoded as {reference_pcm.dtype} at {rate} Hz")
+        staged = torch.from_numpy(reference_pcm).to(device)
+        on_card = resample.resample(staged, USER_RATE, SR)
+        on_cpu = resample.resample(torch.from_numpy(reference_pcm), USER_RATE, SR)
+        require(tuple(on_card.shape) == tuple(on_cpu.shape) == (FULL_N, 2),
+                f"resampled to {tuple(on_card.shape)} on the card, {tuple(on_cpu.shape)} on the CPU")
+        err = float((on_card.cpu() - on_cpu).abs().max())
+        require(err <= RESAMPLE_TOL, f"card resample off the CPU's by {err} > {RESAMPLE_TOL}")
+        del on_card, on_cpu
+        plan = resample.plan_resample(USER_RATE, SR)
+        block_out, width = plan.weights.shape
+        nblocks = -(-FULL_N // block_out)
+        flops = 2 * 2 * nblocks * width * block_out  # the product as shaped: (2 * nblocks, width) @ (width, block_out)
+        moved = reference_pcm.nbytes + plan.weights.nbytes + FULL_N * 2 * 8
+        windows = torch.rand((2, nblocks, width), dtype=torch.float64, device=device)
+        weights = torch.from_numpy(plan.weights.T.copy()).to(device)
+        numbers["resample"] = {
+            "max_abs_err_card_vs_cpu": err, "tolerance": RESAMPLE_TOL,
+            "up": plan.up, "down": plan.down, "c": plan.c, "reach": plan.reach,
+            "weights": [width, block_out], "gemm": [2 * nblocks, width, block_out],
+            "flops": flops, "bytes": moved,
+            "ms": cuda_ms(lambda: resample.resample(staged, USER_RATE, SR), 10),
+            "gemm_ms": cuda_ms(lambda: torch.matmul(windows, weights), 10),
+            "flop_bound_ms": 1e3 * flops / f64_flops,
+            "byte_bound_ms": 1e3 * moved / bandwidth,
+        }
+        del windows, staged
+
+        # process() with both previews and a PCM_24 AIFF result
+        runs, events = [], []
+        for label in ("cold", "warm"):
+            timeline = run_process(
+                label, runs, events, path["t.wav"], path["r48.wav"], [mt.pcm24(path["master.aiff"])],
+                config, mt.pcm16(path["pt.wav"]), mt.pcm16(path["pr.wav"]),
+            )
+        numbers["process"] = runs
+        numbers["realtime_factor_warm"] = FULL_SECONDS / runs[-1]["wall_s"]
+        numbers["warm_timeline"] = timeline
+        master, rate = codecs.read(path["master.aiff"])
+        require(rate == SR and master.shape == (FULL_N, 2), f"the AIFF master is {master.shape} at {rate} Hz")
+        require(bool(np.all(np.isfinite(master))), "the AIFF master holds non-finite samples")
+        peak = float(np.max(np.abs(master)))
+        # the limiter's ceiling is the threshold to within its smoothing; at
+        # PCM_24 a few steps over it show, so hold the master below full scale
+        require(peak < 1.0, f"the AIFF master peaks at {peak}")
+        for name in ("pt.wav", "pr.wav"):
+            piece, rate = wav.read(path[name])
+            require(rate == SR and piece.shape == (config.preview_size, 2),
+                    f"preview {name} is {piece.shape} at {rate} Hz")
+
+        # the preview window the card chooses, and the CPU's on the card's result
+        target_pcm, _ = mt.load(path["t.wav"], "target", tmp, True)
+        reference_track, _ = mt.check(reference_pcm, USER_RATE, config, "reference", device=device)
+        result = mt.master(target_pcm, reference_track, config, device=device).result
+        window, step = config.preview_size, config.preview_analysis_step
+        index = preview._loudest_window_index(result, window, step)
+        cpu_index = preview._loudest_window_index(result.cpu(), window, step)
+        require(index == cpu_index, f"preview window {index} on the card, {cpu_index} on the CPU")
+        numbers["preview"] = {
+            "index": index, "cpu_index": cpu_index, "windows": (FULL_N - window) // step + 1,
+            "search_ms": cuda_ms(lambda: preview._loudest_window_index(result, window, step), 10),
+        }
+        del result, reference_track
+
+        # the command line, in a process of its own
+        start = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "matchering_tpu_torch", path["t.wav"], path["r48.wav"], path["cli.wav"],
+             "-b", "24", "--preview_result", path["cli_pr.wav"], "--quiet"],
+            cwd=here, capture_output=True, text=True, timeout=300,
+        )
+        require(cli.returncode == 0, f"the CLI exited {cli.returncode}: {cli.stderr.strip()[-2000:]}")
+        numbers["cli_wall_s"] = time.perf_counter() - start
+        cli_master, rate = wav.read(path["cli.wav"])
+        require(rate == SR and cli_master.shape == (FULL_N, 2), f"the CLI master is {cli_master.shape} at {rate} Hz")
+        # the same pair and Config as process() above: the same PCM_24 master
+        cli_err = float(np.max(np.abs(cli_master - master)))
+        require(cli_err <= PCM24_LSB, f"the CLI master is {cli_err} off process()'s > one PCM_24 step")
+        piece, rate = wav.read(path["cli_pr.wav"])
+        require(rate == SR and piece.shape == (config.preview_size, 2), f"the CLI preview is {piece.shape}")
+        numbers["cli_vs_process_max_abs_err"] = cli_err
+    return numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -139,7 +259,8 @@ def main() -> None:
         f"{torch.backends.cudnn.allow_tf32}",
         flush=True,
     )
-    bandwidth = HBM_BYTES_PER_S["pcie" if "PCIe" in card else "sxm"]
+    part = "pcie" if "PCIe" in card else "sxm"
+    bandwidth = HBM_BYTES_PER_S[part]
 
     def cuda_ms(fn, reps):
         fn()
@@ -152,6 +273,31 @@ def main() -> None:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
+
+    def run_process(label, runs, events, *args, **kwargs):
+        """One ``process()`` call on the card, its log events recorded in
+        ``events`` and its kernel launches counted from 0."""
+        events.clear()
+
+        def record(*parts, **_kwargs):
+            events.append((time.perf_counter(), " ".join(str(p) for p in parts)))
+
+        mt.log(info_handler=record, warning_handler=record, debug_handler=record)
+        envelope.LAUNCHES = 0
+        scan.LAUNCHES = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            mt.process(*args, device="cuda", **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            mt.log()
+        wall = time.perf_counter() - start
+        runs.append({"run": label, "wall_s": wall, "k1": envelope.LAUNCHES, "k2": scan.LAUNCHES})
+        require(envelope.LAUNCHES >= 1, f"{label} process() launched K1 {envelope.LAUNCHES} times")
+        require(scan.LAUNCHES >= 4, f"{label} process() launched K2 {scan.LAUNCHES} times")
+        # where the wall time went: each event's offset from the start
+        return [{"t_s": round(t - start, 6), "event": message[:70]} for t, message in events]
 
     def kernel_ms(fn, name, reps=20):
         """Device time per launch of the kernel whose name holds `name`, from
@@ -346,28 +492,10 @@ def main() -> None:
         del target, reference
         runs = []
         events = []  # (time, message) of process()'s own log events
-
-        def record(*args, **_kwargs):
-            events.append((time.perf_counter(), " ".join(str(a) for a in args)))
-
         for label in ("cold", "warm"):
-            events.clear()
-            mt.log(info_handler=record, warning_handler=record, debug_handler=record)
-            envelope.LAUNCHES = 0
-            scan.LAUNCHES = 0
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            mt.process(target_path, reference_path, [mt.pcm16(out_path)], device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - start
-            mt.log()
-            runs.append({"run": label, "wall_s": wall, "k1": envelope.LAUNCHES, "k2": scan.LAUNCHES})
-            require(envelope.LAUNCHES >= 1, f"{label} process() launched K1 {envelope.LAUNCHES} times")
-            require(scan.LAUNCHES >= 4, f"{label} process() launched K2 {scan.LAUNCHES} times")
-        # where the warm run's wall time went: each event's offset from the start
-        timeline = [
-            {"t_s": round(t - start, 6), "event": message[:70]} for t, message in events
-        ]
+            timeline = run_process(
+                label, runs, events, target_path, reference_path, [mt.pcm16(out_path)]
+            )
         # the device's share of master(): one profiled call on the staged int16 pair
         target_pcm, _ = mt.load(target_path, "target", raw_int=True)
         reference_pcm, _ = mt.load(reference_path, "reference", raw_int=True)
@@ -427,7 +555,11 @@ def main() -> None:
     print(json.dumps({"snr_db_f32_card_vs_f64_cpu": measured, "gate_db": SNR_GATE_DB}), flush=True)
     require(measured >= SNR_GATE_DB, f"card float32 master at {measured} dB < {SNR_GATE_DB} dB")
 
-    # --- 6. results ---
+    # --- 6. the user path: a 48 kHz reference, previews, an AIFF result, the CLI ---
+    print(json.dumps({"user_path": user_path(mt, torch, device, config, here, cuda_ms, run_process,
+                                             bandwidth, F64_TENSOR_FLOPS[part])}), flush=True)
+
+    # --- 7. results ---
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({
         "ok": True,

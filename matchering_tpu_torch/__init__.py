@@ -10,8 +10,9 @@ of the JAX package.
                results=[mg.pcm16("out.wav")])
 
 Entry points run on ``cuda`` unless given ``device=``; with no card they
-raise.  ``limit`` runs on its tensor's device.  On CUDA the limiter runs
-two hand-written kernels (``matchering_tpu_torch.kernels``).
+raise.  The command line is ``python -m matchering_tpu_torch``.  ``limit``
+runs on its tensor's device.  On CUDA the limiter runs two hand-written
+kernels (``matchering_tpu_torch.kernels``).
 """
 
 __version__ = "0.1.0"
@@ -24,6 +25,7 @@ from .io import load, save
 from .limiter import limit
 from .log import Code, ModuleError
 from .log import set_handlers as log
+from .preview import create_preview
 from .results import Result, pcm16, pcm24, pcm32f
 from .stages import MasterOutput, master, master_graph
 
@@ -36,6 +38,7 @@ __all__ = [
     "Result",
     "check",
     "check_equality",
+    "create_preview",
     "limit",
     "load",
     "log",

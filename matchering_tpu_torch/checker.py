@@ -3,21 +3,25 @@
 Counterpart of ``matchering_tpu.checker`` (reference
 ``matchering/checker.py:31-142``): tracks outside the configured length
 window are rejected, mono becomes stereo, more than two channels is an
-error, and the TARGET gets clipping/limiting advisories from a peak count
-on the device.  Resampling is not ported yet: a track whose rate differs
-from ``config.internal_sample_rate`` raises its role's loading error.
+error, a track at another rate than ``config.internal_sample_rate`` is
+resampled to it on the device (``ops.resample``; the reference delegates to
+``resampy``, ``checker.py:42``), and the TARGET gets clipping/limiting
+advisories from a peak count on the device.  A resampled track comes back
+as a float64 tensor on the device; any other track as the host array it
+was given.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
+import torch
 
 from .config import Config
 from .log import Code, ModuleError, debug, info, warning
-from .ops import basics
+from .ops import basics, resample
 from .utils import resolve_device, time_str, to_device
 
 
@@ -30,7 +34,7 @@ class _RolePolicy:
     too_short: Code
     mono: Code
     too_many_channels: Code
-    unsupported_rate: Code
+    resample_event: object  # zero-arg callable firing the role's resample code
     heuristics: bool  # clipping/limiter advisories run for the TARGET only
 
 
@@ -41,7 +45,7 @@ _POLICIES = {
         too_short=Code.ERROR_TARGET_LENGTH_IS_TOO_SMALL,
         mono=Code.INFO_TARGET_IS_MONO,
         too_many_channels=Code.ERROR_TARGET_NUM_OF_CHANNELS_IS_EXCEEDED,
-        unsupported_rate=Code.ERROR_TARGET_LOADING,
+        resample_event=lambda: warning(Code.WARNING_TARGET_IS_RESAMPLED),
         heuristics=True,
     ),
     "REFERENCE": _RolePolicy(
@@ -50,7 +54,7 @@ _POLICIES = {
         too_short=Code.ERROR_REFERENCE_LENGTH_LENGTH_TOO_SMALL,
         mono=Code.INFO_REFERENCE_IS_MONO,
         too_many_channels=Code.ERROR_REFERENCE_NUM_OF_CHANNELS_IS_EXCEEDED,
-        unsupported_rate=Code.ERROR_REFERENCE_LOADING,
+        resample_event=lambda: info(Code.INFO_REFERENCE_IS_RESAMPLED),
         heuristics=False,
     ),
 }
@@ -80,22 +84,25 @@ def _to_stereo(array: np.ndarray, policy: _RolePolicy) -> np.ndarray:
     raise ModuleError(policy.too_many_channels)
 
 
-def _require_internal_rate(sample_rate: int, config: Config, policy: _RolePolicy) -> None:
-    if sample_rate != config.internal_sample_rate:
-        debug(
-            f"{policy.name} is at {sample_rate} Hz; resampling to "
-            f"{config.internal_sample_rate} Hz is not ported yet"
-        )
-        raise ModuleError(policy.unsupported_rate)
+def _to_internal_rate(
+    array: np.ndarray, sample_rate: int, config: Config, policy: _RolePolicy, device
+):
+    """Resample to the internal rate on ``device``; integer PCM crosses to
+    it raw and converts there."""
+    internal = config.internal_sample_rate
+    if sample_rate == internal:
+        return array, sample_rate
+    debug(f"Rate conversion for {policy.name}: {sample_rate} -> {internal} Hz")
+    converted = resample.resample(to_device(array, device), sample_rate, internal)
+    policy.resample_event()
+    return converted, internal
 
 
-def _int_to_float(array: np.ndarray) -> np.ndarray:
-    if np.issubdtype(array.dtype, np.integer):
-        return array.astype(np.float64) / basics.pcm_int_scale(array.dtype)
-    return array
+def _as_float64(array, device) -> torch.Tensor:
+    return basics.to_working_float(to_device(array, device), torch.float64)
 
 
-def _peak_heuristics(array: np.ndarray, config: Config, device) -> None:
+def _peak_heuristics(array, config: Config, device) -> None:
     """Advisory-only analysis of the peak population: many samples pinned at
     one maximum suggest clipping (at full scale) or an upstream limiter."""
     peak, pinned = basics.count_max_peaks(to_device(array, device))
@@ -111,25 +118,31 @@ def _peak_heuristics(array: np.ndarray, config: Config, device) -> None:
 
 def check(
     array: np.ndarray, sample_rate: int, config: Config, name: str, device=None
-) -> Tuple[np.ndarray, int]:
+) -> Tuple[Union[np.ndarray, torch.Tensor], int]:
     """Condition one input track for the mastering graph: bound its length,
-    force stereo, require the internal rate, and (for the TARGET) emit
-    peak-population advisories, counted on ``device`` (``cuda`` unless
-    named)."""
+    force stereo, convert to the internal rate, and (for the TARGET) emit
+    peak-population advisories.  Resampling and the peak count run on
+    ``device`` (``cuda`` unless named)."""
     policy = _POLICIES[name.upper()]
+    device = resolve_device(device)
     _bound_length(array, sample_rate, config, policy)
     array = _to_stereo(array, policy)
-    _require_internal_rate(sample_rate, config, policy)
+    array, sample_rate = _to_internal_rate(array, sample_rate, config, policy, device)
     if policy.heuristics:
-        _peak_heuristics(array, config, resolve_device(device))
+        _peak_heuristics(array, config, device)
     return array, sample_rate
 
 
-def check_equality(target: np.ndarray, reference: np.ndarray) -> None:
+def check_equality(target, reference) -> None:
     """Matching a track against itself is meaningless; reject it
     (reference ``checker.py:140-142``).  Staged integer PCM compares in the
-    float domain."""
-    if target.shape == reference.shape and np.allclose(
-        _int_to_float(target), _int_to_float(reference)
+    float domain, with ``np.allclose``'s tolerances, on the device of a
+    track that is a tensor (resampled there), else on the host."""
+    if tuple(target.shape) != tuple(reference.shape):
+        return
+    tensors = [a for a in (target, reference) if isinstance(a, torch.Tensor)]
+    device = tensors[0].device if tensors else torch.device("cpu")
+    if torch.allclose(
+        _as_float64(target, device), _as_float64(reference, device), rtol=1e-5, atol=1e-8
     ):
         raise ModuleError(Code.ERROR_TARGET_EQUALS_REFERENCE)

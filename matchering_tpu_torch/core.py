@@ -1,15 +1,15 @@
 """Single-pair mastering entry point (PyTorch port).
 
 Counterpart of ``matchering_tpu.core.process`` (reference
-``matchering/core.py:32-121``): decode and condition both WAV tracks, run
-``stages.main`` on the device, and encode the requested output variants.
-The coded event stream and the validation rules are the JAX package's.
-Previews are not ported yet.
+``matchering/core.py:32-121``): decode and condition both tracks, run
+``stages.main`` on the device, encode the requested output variants and,
+if asked, the previews.  The coded event stream and the validation rules
+are the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -17,16 +17,18 @@ from .checker import check, check_equality
 from .config import Config
 from .io import load, save
 from .log import Code, ModuleError, debug, debug_line, info
+from .preview import create_preview
 from .results import Result
 from .stages import main as stages_main
-from .utils import resolve_device
+from .utils import get_temp_folder, resolve_device
 
 
-def _ingest(path: str, role: str, config: Config, device):
+def _ingest(path: str, role: str, config: Config, temp_folder: str, device):
     """Decode one file and condition it.  Integer-PCM WAV keeps its raw
     int16/int32 payload (``raw_int=True``): that is what crosses to the
-    device, which converts it (``ops.basics.to_working_float``)."""
-    audio, rate = load(path, role, raw_int=True)
+    device, which converts it (``ops.basics.to_working_float``), and
+    resamples it there if its rate is not the internal one."""
+    audio, rate = load(path, role, temp_folder, raw_int=True)
     return check(audio, rate, config, role, device=device)
 
 
@@ -55,11 +57,15 @@ def process(
     reference: str,
     results: List[Result],
     config: Config = Config(),
+    preview_target: Optional[Result] = None,
+    preview_result: Optional[Result] = None,
+    *,
     device=None,
 ) -> None:
-    """Master the WAV ``target`` against the WAV ``reference`` and write
-    each of ``results``.  Runs on ``device`` (``cuda`` unless named; raises
-    if there is no card rather than falling back to the CPU)."""
+    """Master ``target`` against ``reference`` and write each of
+    ``results``, and the loudest-section previews if asked.  Runs on
+    ``device`` (``cuda`` unless named; raises if there is no card rather
+    than falling back to the CPU)."""
     debug("matchering_tpu_torch — audio matching & mastering on PyTorch")
     debug_line()
     device = resolve_device(device)
@@ -70,8 +76,10 @@ def process(
     if not results:
         raise RuntimeError("The result list is empty")
 
-    target_track = _ingest(target, "target", config, device)
-    reference_track = _ingest(reference, "reference", config, device)
+    temp_folder = config.temp_folder or get_temp_folder(results)
+
+    target_track = _ingest(target, "target", config, temp_folder, device)
+    reference_track = _ingest(reference, "reference", config, temp_folder, device)
 
     if not config.allow_equality:
         check_equality(target_track[0], reference_track[0])
@@ -94,6 +102,12 @@ def process(
     for result in results:
         audio = variants[_variant_key(result)].cpu().numpy().astype(np.float64)
         save(result.file, audio, config.internal_sample_rate, result.subtype)
+
+    if preview_target or preview_result:
+        # any rendered variant serves as the preview source, preferring the
+        # limited one (reference ``core.py:112-118``)
+        source = next(v for v in (limited, raw, normalized) if v is not None)
+        create_preview(target_track[0], source, config, preview_target, preview_result)
 
     debug_line()
     info(Code.INFO_COMPLETED)

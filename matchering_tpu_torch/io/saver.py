@@ -1,13 +1,12 @@
-"""Audio export (reference ``matchering/saver.py:27-33``), WAV only."""
+"""Audio export (reference ``matchering/saver.py:27-33``) through
+``codecs.write``: WAV, AIFF, W64 or CAF by the file's extension."""
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 
 from ..log import debug
-from . import wav
+from . import codecs
 
 
 def save(
@@ -17,10 +16,7 @@ def save(
     subtype: str,
     name: str = "result",
 ) -> None:
-    ext = os.path.splitext(file)[1][1:].upper()
-    if ext != "WAV":
-        raise RuntimeError(f"unsupported output format: {ext} (the port writes WAV only)")
     name = name.upper()
     debug(f"Saving the {name} {sample_rate} Hz Stereo {subtype} to: '{file}'...")
-    wav.write(file, np.asarray(result), sample_rate, subtype)
+    codecs.write(file, np.asarray(result), sample_rate, subtype)
     debug(f"'{file}' is saved")

@@ -83,6 +83,17 @@ def normalize(
     return array / coefficient, coefficient
 
 
+def fade(array: torch.Tensor, fade_size: int) -> torch.Tensor:
+    """Linear fade-in/out over ``fade_size`` samples (reference
+    ``dsp.py:146-152``)."""
+    n = array.shape[0]
+    ramp_in = torch.linspace(0.0, 1.0, fade_size, dtype=array.dtype, device=array.device)
+    ramp_in = ramp_in.reshape((fade_size,) + (1,) * (array.ndim - 1))
+    head = array[:fade_size] * ramp_in
+    tail = array[n - fade_size :] * ramp_in.flip(0)
+    return torch.cat([head, array[fade_size : n - fade_size], tail], dim=0)
+
+
 # ---------------------------------------------------------------------------
 # RMS statistics
 

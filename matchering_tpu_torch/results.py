@@ -1,25 +1,16 @@
 """Output descriptors (reference ``matchering/results.py:25-46``).
 
 A :class:`Result` names an output file, its PCM subtype and which processing
-variant feeds it (limited / no-limiter / no-limiter-normalized).  The port
-writes WAV only, so only WAV's subtypes are accepted.
+variant feeds it (limited / no-limiter / no-limiter-normalized).  The
+formats and subtypes accepted are those ``io.codecs`` writes: WAV, AIFF,
+W64 and CAF.
 """
 
 from __future__ import annotations
 
 import os
 
-from .io import pcm
-
-_WRITE_FORMATS = {"WAV": tuple(pcm.ENCODERS)}
-
-
-def check_format(fmt: str, subtype: str = None) -> bool:
-    """True if ``fmt`` (and optionally ``subtype``) can be written."""
-    subtypes = _WRITE_FORMATS.get(fmt.upper())
-    if subtypes is None:
-        return False
-    return subtype is None or subtype.upper() in subtypes
+from .io.codecs import check_format
 
 
 class Result:

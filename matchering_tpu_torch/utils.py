@@ -4,7 +4,25 @@ port's device rules."""
 from __future__ import annotations
 
 import math
+import os
+import random
+import string
 from datetime import timedelta
+
+
+def get_temp_folder(results: list) -> str:
+    """Folder of the first result file, used for codec temp conversions."""
+    return os.path.dirname(os.path.abspath(results[0].file))
+
+
+def random_str(size: int = 16) -> str:
+    alphabet = string.ascii_lowercase + string.digits
+    return "".join(random.choices(alphabet, k=size))
+
+
+def random_file(prefix: str = "", extension: str = "wav") -> str:
+    head = f"{prefix}-" if prefix else ""
+    return f"{head}{random_str()}.{extension}"
 
 
 def to_db(value: float) -> str:

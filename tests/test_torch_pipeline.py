@@ -4,8 +4,9 @@
 SNR for all three variants (float64 rounding apart, the two compute the
 same chain), and the port's float32 output must stay above the JAX
 package's own float32 gate of 95 dB (tests/test_dtype_gates.py).
-``process()`` on a WAV pair must write PCM_16 samples within 1 LSB of
-``matchering_tpu.process`` and emit the same coded events.
+``process()`` on a WAV pair, with or without a 48 kHz input and previews,
+must write PCM_16 samples within 1 LSB of ``matchering_tpu.process`` and
+emit the same coded events.
 """
 
 import dataclasses
@@ -117,6 +118,46 @@ def test_process_wav_matches_jax_within_one_lsb(tmp_path):
     assert port_out.dtype == np.int16 and port_out.shape == jax_out.shape
     assert np.max(np.abs(port_out.astype(np.int32) - jax_out)) <= 1
     assert port_events == jax_events
+
+
+def _track(seconds, rate, seed, gain):
+    n = seconds * rate
+    env = 0.5 + 0.5 * np.sin(np.arange(n) / rate * 1.3)[:, None]
+    return np.clip(gain * np.random.RandomState(seed).randn(n, 2) * env, -1, 1)
+
+
+@pytest.mark.parametrize("at_48k,resampled_code", [("reference", "2202:"), ("target", "3003:")])
+def test_process_resampled_input_with_previews_matches_jax(tmp_path, at_48k, resampled_code):
+    """One track a 48 kHz PCM_24 file (resampled on the device) and both
+    previews, cut from an 8 s track: the master and both previews within
+    1 LSB of PCM_16 of ``matchering_tpu.process``, the same events."""
+    rates = {"target": SR, "reference": SR, at_48k: 48000}
+    for role, seed, gain in (("target", 3, 0.3), ("reference", 4, 0.9)):
+        rate = rates[role]
+        jwav.write(str(tmp_path / f"{role}.wav"), _track(8, rate, seed, gain), rate,
+                   "PCM_24" if rate == 48000 else "PCM_16")
+    config = dict(dtype="float64", preview_size=6, preview_analysis_step=2)
+    files = {}
+    try:
+        for name, package, kwargs in (("jax", mj, {}), ("port", mt, {"device": "cpu"})):
+            events = _events(package)
+            paths = [str(tmp_path / f"{name}_{k}.wav") for k in ("master", "pt", "pr")]
+            package.process(
+                str(tmp_path / "target.wav"), str(tmp_path / "reference.wav"),
+                [package.pcm16(paths[0])], package.Config(**config),
+                package.pcm16(paths[1]), package.pcm16(paths[2]), **kwargs,
+            )
+            files[name] = (paths, events)
+    finally:
+        mj.log()
+        mt.log()
+    assert files["port"][1] == files["jax"][1]
+    assert any(e.startswith(resampled_code) for e in files["port"][1])
+    for jax_path, port_path, frames in zip(files["jax"][0], files["port"][0], (8 * SR, 6 * SR, 6 * SR)):
+        jax_out, _ = jwav.read(jax_path, raw_int=True)
+        port_out, rate = jwav.read(port_path, raw_int=True)
+        assert rate == SR and port_out.shape == jax_out.shape == (frames, 2)
+        assert np.max(np.abs(port_out.astype(np.int32) - jax_out)) <= 1
 
 
 def test_process_without_device_raises_when_cuda_is_absent(tmp_path, monkeypatch):
