@@ -20,7 +20,15 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    carries differently from run to run.  It times both at full width in
    float32, K2 at the limiter's three poles, forward and reverse: a call
    (CUDA events over 20 back-to-back calls) and the kernel alone
-   (profiler);
+   (profiler).  Then the kernels' length modes (rows of a zero-padded
+   batch, each ending at its own true length): K1 over 4 rows of
+   3 * tile + 7 with lengths of one window, one tile less and more one
+   sample, and the full row, and over 8 rows of 8,126,464 (the bucket of a
+   180 s track) with lengths drawn from the seed; K2 over 3 ragged rows,
+   both directions, with and without zi, and over the 8 full-width rows;
+   at the same tolerances.  Both are timed over the 8 full-width rows in
+   float32 (a call, the kernel alone, the plain twin) beside their byte
+   bounds;
 4. writes a 180 s PCM_16 WAV pair made from a seed and runs
    ``process()`` on it on the card twice (cold, warm), counting kernel
    launches per run, and checks the written file; prints the warm run's
@@ -38,7 +46,21 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    checks that the preview window chosen on the card is the one the CPU
    chooses on the card's result; runs ``python3 -m matchering_tpu_torch``
    on the pair and checks its outputs;
-7. prints one JSON line of per-kernel numbers, then, last, the device line
+7. the farm path: writes eight PCM_16 WAV jobs from the seed (targets
+   150-180 s, references 140-180 s; one job also asks for both previews,
+   one for a raw FLOAT variant), runs ``process_batch`` on the card with
+   ``dispatch="pipelined"`` and then ``"vmapped"``, each twice (cold,
+   warm), with the kernel launches counted per run (8 K1 and 32 K2
+   pipelined, 1 and 4 vmapped), its wall time, pairs and audio seconds per
+   wall second, peak device memory and the warm runs' event timelines;
+   holds every job's PCM_16 file to what ``process()`` on the card writes
+   for the pair (one LSB); runs the dynamic ``master_graph`` on the staged
+   batch under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync),
+   times it against one graph per pair on the same staged inputs, and
+   holds ``master_batch`` on the card at float32 against the CPU at
+   float64 on three rows of 20-30 s (>= 95 dB per row);
+8. prints one JSON line of per-kernel numbers (with each kernel's batched
+   numbers from phases 3 and 7), then, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code and no device line.
@@ -65,6 +87,11 @@ SEED = 20260
 USER_RATE = 48000  # the user path's reference rate (video and DAW exports)
 RESAMPLE_TOL = 1e-12  # float64 on both: the two sum the product in other orders
 PCM24_LSB = 2.0**-23
+BUCKET = 1 << 18  # process_batch's default bucket multiple
+BUCKET_N = 31 * BUCKET  # 8,126,464 samples: the bucket of a 180 s track
+BATCH_ROWS = 8
+FARM_JOBS = 8
+BATCH_SNR_SECONDS = (20, 30)  # the card-vs-CPU master_batch rows
 # H100 peaks (NVIDIA data sheet, SXM part; the PCIe part is slower)
 HBM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
 F32_FLOPS = 67e12  # float32 outside the tensor cores
@@ -87,7 +114,7 @@ def make_pair(seconds: int, sr: int, seed: int):
     repository's bench.py: a soft two-tone target and a square-wave
     reference under a slow envelope, with noise)."""
     rng = np.random.RandomState(seed)
-    n = seconds * sr
+    n = int(seconds * sr)
     t = np.arange(n) / sr
     env = 0.6 + 0.4 * np.sin(2 * np.pi * t * 0.25) ** 2
     target = np.stack(
@@ -114,6 +141,34 @@ def snr_db(reference, test) -> float:
     if denom == 0.0:
         return float("inf")
     return 10.0 * np.log10(float(np.sum(reference * reference)) / denom)
+
+
+def profile_device(torch, fn, sessions=3):
+    """One call of ``fn`` under the profiler, synchronised: its wall time
+    in ms and the device's events, ``{"op", "device_ms", "calls"}`` sorted
+    by device time (kernels and copies; host ops would count them twice).
+    A profiler session now and then delivers no device records at all, so
+    an empty session is repeated, up to ``sessions`` in all."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for session in range(sessions):
+        with torch.profiler.profile(activities=activities) as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - start)
+        ops = [
+            {"op": e.key, "device_ms": e.self_device_time_total / 1e3, "calls": e.count}
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("Activity")
+        ]
+        if ops:
+            return wall_ms, sorted(ops, key=lambda o: -o["device_ms"])
+        print(f"profiler session {session + 1} saw no device events", flush=True)
+    fail(f"the profiler saw no device events in {sessions} sessions")
+
+
+def top(ops, count, width):
+    return [{**o, "op": o["op"][:width]} for o in ops[:count]]
 
 
 def user_path(mt, torch, device, config, here, cuda_ms, run_process, bandwidth, f64_flops):
@@ -223,6 +278,271 @@ def user_path(mt, torch, device, config, here, cuda_ms, run_process, bandwidth, 
     return numbers
 
 
+def length_modes(torch, device, config, rng, release, k2_error, cuda_ms, kernel_ms, bandwidth):
+    """Phase 3, second part: K1 and K2 on the rows of a zero-padded batch,
+    each row ending at its own true length (see the module's docstring).
+    Returns each kernel's ``batched`` numbers; fails on any mismatch."""
+    from matchering_tpu_torch.kernels import envelope, scan
+    from matchering_tpu_torch.utils import RowInts, ms_to_samples
+
+    attack = ms_to_samples(config.limiter.attack, SR)
+    window = envelope.window_for(attack)
+    tile, threshold = envelope.TILE, config.threshold
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    # the lengths of 150-180 s songs padded to one bucket, and one full row
+    full_lengths = sorted(int(v) for v in rng.randint(150 * SR, BUCKET_N, BATCH_ROWS - 1))
+    full_lengths.append(BUCKET_N)
+    full = RowInts.of(full_lengths, device)
+
+    def k1_error(track, lengths):
+        got = envelope.limiter_front_end(track, threshold, attack, lengths)
+        want = envelope.limiter_front_end_plain(track, threshold, attack, lengths)
+        torch.cuda.synchronize()
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    short_n = 3 * tile + 7
+    short_lengths = [window, tile - 1, tile + 1, short_n]
+    k1_err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for n, lengths in ((short_n, short_lengths), (BUCKET_N, full_lengths)):
+            track = torch.randn((len(lengths), n, 2), generator=gen, device=device, dtype=dtype) * 0.5
+            err = k1_error(track, RowInts.of(lengths, device))
+            require(err == 0.0, f"K1 with lengths {lengths} at n={n}, {dtype}: max abs err {err}")
+            k1_err = max(k1_err, err)
+    print(f"K1 length mode checked: lengths {short_lengths} at n={short_n}, {full_lengths} at "
+          f"n={BUCKET_N}, float32 and float64: max abs err {k1_err}", flush=True)
+
+    scan_n = 3 * scan.TILE + 5
+    scan_lengths = [1, scan.TILE + 1, scan_n - 3]
+    k2_worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for dtype, tol in ((torch.float32, SCAN_TOL), (torch.float64, SCAN_REL_TOL_F64)):
+        x = torch.rand((3, scan_n), generator=gen, device=device, dtype=dtype)
+        zi_rows = torch.rand(3, generator=gen, device=device, dtype=torch.float64) * 0.5
+        for zi in (None, zi_rows):
+            for reverse in (False, True):
+                err, _ = k2_error(x, release, zi, reverse, lengths=RowInts.of(scan_lengths, device))
+                require(err <= tol, f"K2 with lengths {scan_lengths}, {dtype}, zi={zi is not None}, "
+                                    f"reverse={reverse}: error {err} > {tol}")
+                k2_worst[dtype] = max(k2_worst[dtype], err)
+
+    # the 8 full-width rows in float32: checked, then timed
+    track = torch.randn((BATCH_ROWS, BUCKET_N, 2), generator=gen, device=device) * 0.5
+    x = torch.rand((BATCH_ROWS, BUCKET_N), generator=gen, device=device)
+    zi = torch.rand(BATCH_ROWS, generator=gen, device=device, dtype=torch.float64) * 0.5
+    cases = []
+    for reverse in (False, True):
+        err, _ = k2_error(x, release, zi, reverse, lengths=full)
+        require(err <= SCAN_TOL, f"K2 over {BATCH_ROWS} full-width rows, reverse={reverse}: {err}")
+        k2_worst[torch.float32] = max(k2_worst[torch.float32], err)
+
+        def call(plain=False):
+            fn = scan.first_order_filter_plain if plain else scan.first_order_filter
+            return fn(x, *release, zi=zi, reverse=reverse, lengths=full)
+
+        cases.append({
+            "reverse": reverse, "max_abs_err": err, "ms": cuda_ms(call, 20),
+            "kernel_ms": kernel_ms(call, "scan_kernel"), "plain_ms": cuda_ms(lambda: call(True), 2),
+        })
+    print(f"K2 length mode checked: lengths {scan_lengths} at n={scan_n} and {BATCH_ROWS} rows at "
+          f"n={BUCKET_N}: worst float32 abs err {k2_worst[torch.float32]}, worst float64 rel err "
+          f"{k2_worst[torch.float64]}", flush=True)
+
+    true_samples, padded = sum(full_lengths), BATCH_ROWS * BUCKET_N
+
+    def bound(moved, ops, flops):
+        return {
+            "bytes": moved, "bound_ms": 1e3 * max(moved / bandwidth, ops / flops),
+            "bound_by": "bytes" if moved / bandwidth >= ops / flops else "operations",
+        }
+
+    common = {"rows": BATCH_ROWS, "n": BUCKET_N, "lengths": full_lengths, "dtype": "float32"}
+    # each row read to its length once, every output written over the padded rows
+    k1_batched = {
+        **common, "max_abs_err": k1_err, "tolerance": 0.0,
+        "ms": cuda_ms(lambda: envelope.limiter_front_end(track, threshold, attack, full), 20),
+        "kernel_ms": kernel_ms(
+            lambda: envelope.limiter_front_end(track, threshold, attack, full), "envelope_kernel"
+        ),
+        "plain_ms": cuda_ms(lambda: envelope.limiter_front_end_plain(track, threshold, attack, full), 3),
+        **bound(true_samples * 8 + padded * 8, true_samples * (7 + window - 1), F32_FLOPS),
+        "bound_ms_padded": 1e3 * padded * 16 / bandwidth,
+        "library_ms": None,
+    }
+    k2_batched = {
+        **common, "max_abs_err": k2_worst[torch.float32], "tolerance": SCAN_TOL,
+        "max_rel_err_f64": k2_worst[torch.float64], "tolerance_rel_f64": SCAN_REL_TOL_F64,
+        "ms": sum(c["ms"] for c in cases) / len(cases),
+        "kernel_ms": sum(c["kernel_ms"] for c in cases) / len(cases),
+        "plain_ms": sum(c["plain_ms"] for c in cases) / len(cases),
+        **bound(true_samples * 4 + padded * 4, true_samples * 4, F64_FLOPS),
+        "bound_ms_padded": 1e3 * padded * 8 / bandwidth,
+        "library_ms": None, "cases": cases,
+    }
+    for name, numbers in (("K1", k1_batched), ("K2", k2_batched)):
+        print(f"{name} over {BATCH_ROWS} rows of {BUCKET_N}: {numbers['ms']:.4f} ms a call, "
+              f"{numbers['kernel_ms']:.4f} ms of kernel, bound {numbers['bound_ms']:.4f} ms", flush=True)
+    return k1_batched, k2_batched
+
+
+def farm_path(mt, torch, device, config, recorder):
+    """Phase 7: ``process_batch`` on eight jobs, both dispatches (see the
+    module's docstring).  ``recorder(events)`` installs log handlers that
+    append (time, message) to ``events``.  Returns the phase's numbers;
+    fails on any mismatch."""
+    from matchering_tpu_torch import stages, state
+    from matchering_tpu_torch.io import wav
+    from matchering_tpu_torch.kernels import envelope, scan
+    from matchering_tpu_torch.parallel import batch
+    from matchering_tpu_torch.utils import RowInts
+
+    rng = np.random.RandomState(SEED + 5)
+    t_seconds = rng.uniform(150, 180, FARM_JOBS)
+    r_seconds = rng.uniform(140, 180, FARM_JOBS)
+    numbers = {"jobs": FARM_JOBS, "target_seconds": t_seconds.tolist(),
+               "reference_seconds": r_seconds.tolist(), "bucket": BUCKET}
+    audio_seconds = float(np.sum(np.floor(t_seconds * SR))) / SR
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_farm_") as tmp:
+        def at(name):
+            return os.path.join(tmp, name)
+
+        for i in range(FARM_JOBS):
+            wav.write(at(f"t{i}.wav"), make_pair(t_seconds[i], SR, SEED + 10 + i)[0], SR, "PCM_16")
+            wav.write(at(f"r{i}.wav"), make_pair(r_seconds[i], SR, SEED + 30 + i)[1], SR, "PCM_16")
+
+        def jobs(tag):
+            """One pcm16 result each; job 0 also asks for both previews, job 1
+            for a raw FLOAT variant."""
+            out = []
+            for i in range(FARM_JOBS):
+                results = [mt.pcm16(at(f"{tag}{i}.wav"))]
+                if i == 1:
+                    results.append(mt.Result(at(f"{tag}{i}_raw.wav"), "FLOAT", use_limiter=False,
+                                             normalize=False))
+                previews = {}
+                if i == 0:
+                    previews = {"preview_target": mt.pcm16(at(f"{tag}_pt.wav")),
+                                "preview_result": mt.pcm16(at(f"{tag}_pr.wav"))}
+                out.append(mt.PairJob(at(f"t{i}.wav"), at(f"r{i}.wav"), results, **previews))
+            return out
+
+        runs, timelines = [], {}
+        expected = {"pipelined": (FARM_JOBS, 4 * FARM_JOBS), "vmapped": (1, 4)}
+        for dispatch in ("pipelined", "vmapped"):
+            for label in ("cold", "warm"):
+                events = []
+                recorder(events)
+                envelope.LAUNCHES = 0
+                scan.LAUNCHES = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                start = time.perf_counter()
+                try:
+                    mt.process_batch(jobs(f"{dispatch}_{label}_"), config, dispatch=dispatch, device=device)
+                    torch.cuda.synchronize()
+                finally:
+                    mt.log()
+                wall = time.perf_counter() - start
+                launches = (envelope.LAUNCHES, scan.LAUNCHES)
+                require(launches == expected[dispatch],
+                        f"{dispatch} {label} process_batch launched K1 and K2 {launches} times, "
+                        f"not {expected[dispatch]}")
+                runs.append({
+                    "dispatch": dispatch, "run": label, "wall_s": wall, "pairs_per_s": FARM_JOBS / wall,
+                    "audio_s_per_wall_s": audio_seconds / wall, "k1": launches[0], "k2": launches[1],
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                })
+                print(json.dumps({"farm_run": runs[-1]}), flush=True)
+                if label == "warm":
+                    timelines[dispatch] = [
+                        {"t_s": round(t - start, 4), "event": message[:48]} for t, message in events
+                    ]
+        numbers["runs"] = runs
+        numbers["warm_timelines"] = timelines
+
+        # every job's PCM_16 master against process() on the card
+        worst = 0
+        for i in range(FARM_JOBS):
+            mt.process(at(f"t{i}.wav"), at(f"r{i}.wav"), [mt.pcm16(at(f"single{i}.wav"))], config,
+                       device=device)
+            single, _ = wav.read(at(f"single{i}.wav"), raw_int=True)
+            for dispatch in ("pipelined", "vmapped"):
+                farmed, rate = wav.read(at(f"{dispatch}_warm_{i}.wav"), raw_int=True)
+                require(rate == SR and farmed.shape == single.shape,
+                        f"job {i} ({dispatch}) wrote {farmed.shape} at {rate} Hz, process() {single.shape}")
+                diff = int(np.max(np.abs(farmed.astype(np.int32) - single)))
+                require(diff <= 1, f"job {i} ({dispatch}) is {diff} PCM_16 steps off process()")
+                worst = max(worst, diff)
+        for name in ("_pt.wav", "_pr.wav"):
+            piece, rate = wav.read(at(f"vmapped_warm_{name}"))
+            require(rate == SR and piece.shape == (config.preview_size, 2), f"preview {name} is {piece.shape}")
+        raw, _ = wav.read(at("vmapped_warm_1_raw.wav"))
+        require(bool(np.all(np.isfinite(raw))), "the raw FLOAT variant holds non-finite samples")
+        numbers["max_pcm16_steps_vs_process"] = worst
+
+        # the dynamic graph on staged inputs: no host sync, and batched
+        # against one graph per pair on the same inputs
+        tracks = [(wav.read(at(f"t{i}.wav"), raw_int=True)[0], wav.read(at(f"r{i}.wav"), raw_int=True)[0])
+                  for i in range(FARM_JOBS)]
+        t_batch, t_lens = batch.bucket_pad([t for t, _ in tracks], BUCKET, device=device)
+        r_batch, r_lens = batch.bucket_pad([r for _, r in tracks], BUCKET, device=device)
+        del tracks
+        t_rows, r_rows = RowInts.of(t_lens, device), RowInts.of(r_lens, device)
+        per_pair = [(RowInts.of([a], device), RowInts.of([b], device)) for a, b in zip(t_lens, r_lens)]
+        operators = state.operators_for_config(config, device)
+
+        def batched():
+            return stages.master_graph(t_batch, r_batch, config, operators,
+                                       target_length=t_rows, reference_length=r_rows)
+
+        def pairs():
+            return [stages.master_graph(t_batch[i], r_batch[i], config, operators,
+                                        target_length=a, reference_length=b)
+                    for i, (a, b) in enumerate(per_pair)]
+
+        def wall_ms(fn, reps=3):
+            fn()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - start) / reps
+
+        numbers["graph_ms"] = {"batched": wall_ms(batched), "pairs": wall_ms(pairs)}
+        numbers["graph_ms"]["batched_again"] = wall_ms(batched)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            batched()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        numbers["sync_free_master_graph"] = True
+        graph_ms, ops = profile_device(torch, batched)
+        device_ms = sum(o["device_ms"] for o in ops)
+        numbers["graph_profiled"] = {"wall_ms": graph_ms, "device_ms": device_ms,
+                                     "device_busy_share": device_ms / graph_ms, "top_ops": top(ops, 8, 50)}
+        del t_batch, r_batch, operators
+
+    # master_batch on the card (float32) against the CPU (float64)
+    lo, hi = BATCH_SNR_SECONDS
+    seconds = rng.uniform(lo, hi, (2, 3))
+    targets = [make_pair(s, SR, SEED + 50 + i)[0] for i, s in enumerate(seconds[0])]
+    references = [make_pair(s, SR, SEED + 60 + i)[1] for i, s in enumerate(seconds[1])]
+    t_batch, t_lens = batch.bucket_pad(targets, BUCKET, device="cpu")
+    r_batch, r_lens = batch.bucket_pad(references, BUCKET, device="cpu")
+    lengths = dict(target_lengths=t_lens, reference_lengths=r_lens)
+    card = batch.master_batch(t_batch, r_batch, mt.Config(), **lengths, device=device).result.cpu()
+    cpu = batch.master_batch(t_batch, r_batch, mt.Config(dtype="float64"), **lengths, device="cpu").result
+    snrs = []
+    for i, length in enumerate(t_lens):
+        require(not bool(card[i, length:].any()), f"master_batch row {i} is not 0 past its length")
+        snrs.append(snr_db(cpu[i, :length].numpy(), card[i, :length].numpy()))
+        require(snrs[-1] >= SNR_GATE_DB, f"master_batch row {i}: {snrs[-1]} dB < {SNR_GATE_DB} dB")
+    numbers["master_batch_snr_db_f32_card_vs_f64_cpu"] = snrs
+    numbers["master_batch_snr_seconds"] = seconds.tolist()
+    return numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -299,18 +619,24 @@ def main() -> None:
         # where the wall time went: each event's offset from the start
         return [{"t_s": round(t - start, 6), "event": message[:70]} for t, message in events]
 
-    def kernel_ms(fn, name, reps=20):
+    def kernel_ms(fn, name, reps=20, sessions=3):
         """Device time per launch of the kernel whose name holds `name`, from
-        the profiler: the kernel alone, without the wrapper's host time."""
+        the profiler: the kernel alone, without the wrapper's host time.  A
+        profiler session now and then delivers no kernel records at all
+        (seen once in a run that had passed before on the same tree), so an
+        empty session is repeated, up to `sessions` in all."""
         fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if name in e.key and e.count]
-        require(events, f"the profiler saw no {name} launches")
-        return sum(e.self_device_time_total for e in events) / 1e3 / sum(e.count for e in events)
+        for session in range(sessions):
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if name in e.key and e.count]
+            if events:
+                return sum(e.self_device_time_total for e in events) / 1e3 / sum(e.count for e in events)
+            print(f"profiler session {session + 1} saw no {name} launches", flush=True)
+        fail(f"the profiler saw no {name} launches in {sessions} sessions")
 
     # --- 2. build ---
     start = time.perf_counter()
@@ -380,12 +706,12 @@ def main() -> None:
         ),
     }
 
-    def k2_error(x, filt, zi, reverse, want=None):
+    def k2_error(x, filt, zi, reverse, want=None, lengths=None):
         """Max error of K2 against its twin: absolute in float32 (outputs
         below 2, so one ulp is at most 2^-23), relative in float64."""
-        got = scan.first_order_filter(x, *filt, zi=zi, reverse=reverse)
+        got = scan.first_order_filter(x, *filt, zi=zi, reverse=reverse, lengths=lengths)
         if want is None:
-            want = scan.first_order_filter_plain(x, *filt, zi=zi, reverse=reverse)
+            want = scan.first_order_filter_plain(x, *filt, zi=zi, reverse=reverse, lengths=lengths)
         torch.cuda.synchronize()
         require(bool(torch.isfinite(got).all()), "K2 gave non-finite values")
         diff = (got.double() - want.double()).abs()
@@ -481,6 +807,11 @@ def main() -> None:
         "cases": cases,
     }
 
+    # the length modes: rows of a zero-padded batch
+    k1_batched, k2_batched = length_modes(
+        torch, device, config, rng, release, k2_error, cuda_ms, kernel_ms, bandwidth
+    )
+
     # --- 4. the main path: process() on a 180 s WAV pair ---
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         target, reference = make_pair(FULL_SECONDS, SR, SEED)
@@ -501,24 +832,13 @@ def main() -> None:
         reference_pcm, _ = mt.load(reference_path, "reference", raw_int=True)
         mt.master(target_pcm, reference_pcm, config, device="cuda")
         torch.cuda.synchronize()
-        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        scan.LAUNCHES = 0
-        with torch.profiler.profile(activities=activities) as prof:
-            start = time.perf_counter()
+        def profiled_master():
+            scan.LAUNCHES = 0
             mt.master(target_pcm, reference_pcm, config, device="cuda")
-            torch.cuda.synchronize()
-            master_ms = 1e3 * (time.perf_counter() - start)
-        ops = []  # device-side events only (kernels, copies): host ops would count them twice
-        scan_kernels = 0  # K2's device kernels in the profile, one per call
-        for evt in prof.key_averages():
-            if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key.startswith("Activity"):
-                continue
-            if "scan_kernel" in evt.key:
-                scan_kernels += evt.count
-            ops.append(
-                {"op": evt.key[:60], "device_ms": evt.self_device_time_total / 1e3, "calls": evt.count}
-            )
-        ops.sort(key=lambda o: -o["device_ms"])
+
+        master_ms, ops = profile_device(torch, profiled_master)
+        # K2's device kernels in the profile, one per call
+        scan_kernels = sum(o["calls"] for o in ops if "scan_kernel" in o["op"])
         device_ms = sum(o["device_ms"] for o in ops)
         require(device_ms > 0, "the profiler saw no device time in master()")
         require(
@@ -541,7 +861,7 @@ def main() -> None:
         "master_profiled": {
             "wall_ms": master_ms, "device_ms": device_ms, "device_busy_share": device_ms / master_ms,
             "k2_calls": scan.LAUNCHES, "k2_kernels": scan_kernels,
-            "top_ops": ops[:15],
+            "top_ops": top(ops, 15, 60),
         }
     }), flush=True)
     k1["launches"] = runs[-1]["k1"]
@@ -559,7 +879,23 @@ def main() -> None:
     print(json.dumps({"user_path": user_path(mt, torch, device, config, here, cuda_ms, run_process,
                                              bandwidth, F64_TENSOR_FLOPS[part])}), flush=True)
 
-    # --- 7. results ---
+    # --- 7. the farm path: process_batch, both dispatches ---
+    def recorder(events):
+        def record(*parts, **_kwargs):
+            events.append((time.perf_counter(), " ".join(str(p) for p in parts)))
+
+        mt.log(info_handler=record, warning_handler=record, debug_handler=record)
+
+    farm = farm_path(mt, torch, device, config, recorder)
+    print(json.dumps({"farm_path": farm}), flush=True)
+    launches = {(r["dispatch"], r["run"]): (r["k1"], r["k2"]) for r in farm["runs"]}
+    for index, numbers in enumerate((k1_batched, k2_batched)):
+        numbers["launches"] = launches[("vmapped", "warm")][index]
+        numbers["launches_pipelined"] = launches[("pipelined", "warm")][index]
+    k1["batched"] = k1_batched
+    k2["batched"] = k2_batched
+
+    # --- 8. results ---
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({
         "ok": True,

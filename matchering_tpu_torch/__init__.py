@@ -9,10 +9,13 @@ of the JAX package.
     mg.process(target="song.wav", reference="ref.wav",
                results=[mg.pcm16("out.wav")])
 
-Entry points run on ``cuda`` unless given ``device=``; with no card they
-raise.  The command line is ``python -m matchering_tpu_torch``.  ``limit``
-runs on its tensor's device.  On CUDA the limiter runs two hand-written
-kernels (``matchering_tpu_torch.kernels``).
+Many pairs at once go through ``process_batch`` with ``PairJob``s, which
+pads them to shared buckets and masters each at its true length
+(``matchering_tpu_torch.parallel``).  Entry points run on ``cuda`` unless
+given ``device=``; with no card they raise.  The command line is
+``python -m matchering_tpu_torch``.  ``limit`` runs on its tensor's device.
+On CUDA the limiter runs two hand-written kernels
+(``matchering_tpu_torch.kernels``).
 """
 
 __version__ = "0.1.0"
@@ -21,6 +24,7 @@ __title__ = "matchering_tpu_torch"
 from .checker import check, check_equality
 from .config import Config, LimiterConfig
 from .core import process
+from .farm import PairJob, process_batch
 from .io import load, save
 from .limiter import limit
 from .log import Code, ModuleError
@@ -35,6 +39,7 @@ __all__ = [
     "LimiterConfig",
     "MasterOutput",
     "ModuleError",
+    "PairJob",
     "Result",
     "check",
     "check_equality",
@@ -48,5 +53,6 @@ __all__ = [
     "pcm24",
     "pcm32f",
     "process",
+    "process_batch",
     "save",
 ]

@@ -2,8 +2,8 @@
 
 Counterpart of ``matchering_tpu.__main__``, with the same parser: positional
 target / reference / result plus flags for bit depth, limiter bypass,
-normalization and previews.  It runs on the card; ``--time_sharded`` and
-``--length_bucketing`` are parsed but not ported yet, and end in a parser
+normalization, previews and length bucketing.  It runs on the card;
+``--time_sharded`` is parsed but not ported yet, and ends in a parser
 error.
 """
 
@@ -56,8 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--length_bucketing",
         type=int,
         metavar="N",
-        help="pad tracks to a multiple of N samples and analyze at the true "
-        "length (not ported yet)",
+        help="pad tracks to a multiple of N samples and analyze at the true length",
     )
     parser.add_argument("-q", "--quiet", action="store_true", help="silence output")
     parser.add_argument(
@@ -73,8 +72,6 @@ def main(argv=None, device=None) -> int:
     args = parser.parse_args(argv)
     if args.time_sharded:
         parser.error("--time_sharded is not ported to matchering_tpu_torch yet")
-    if args.length_bucketing is not None:
-        parser.error("--length_bucketing is not ported to matchering_tpu_torch yet")
 
     import matchering_tpu_torch as mt
 
@@ -97,7 +94,7 @@ def main(argv=None, device=None) -> int:
         target=args.target,
         reference=args.reference,
         results=[result],
-        config=mt.Config(),
+        config=mt.Config(length_bucketing=args.length_bucketing),
         preview_target=preview_target,
         preview_result=preview_result,
         device=device,

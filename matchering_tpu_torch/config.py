@@ -13,8 +13,8 @@ Additions over the reference:
 * ``lowess_exact`` — LOWESS at every grid point instead of the
   ``delta``-skipping approximation (not on this port's path yet: the port
   raises for it).
-* ``length_bucketing`` — pad-and-mask serving shapes (not on this port's
-  path yet: the port raises for it).
+* ``length_bucketing`` — pad both tracks to a multiple of N samples and
+  master them at their true lengths (``stages.main``).
 """
 
 from __future__ import annotations

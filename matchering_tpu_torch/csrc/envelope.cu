@@ -1,25 +1,36 @@
 // K1: the limiter front end, a hand-written CUDA kernel for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel matchering_tpu/ops/pallas_envelope.py
-// (`_envelope_kernel` and `limiter_front_end`).  For a contiguous stereo
-// track x of shape (n, 2) it computes, per sample,
+// (`_envelope_kernel` and `limiter_front_end`).  For each row of a
+// contiguous stereo batch x of shape (rows, n, 2) it computes, per sample,
 //
 //     peak   = max(|L|, |R|)
 //     gain   = 1 - 1 / max(peak / threshold, 1)            (hard-clip gain)
 //     slided = max(gain[i - half .. i + half])              (attack window)
 //
 // with window = 2*half + 1 = 2*make_odd(attack) - 1 and ndimage's 'reflect'
-// edges (edge-duplicating: index -1 reads 0, index n reads n-1).  It is the
+// edges (edge-duplicating: index -1 reads 0, index L reads L-1).  It is the
 // fused form of `flip(1/rectify(x))` followed by `sliding_max_attack`, and
 // is held to a max error of 0 against that composition: the gain is divided
 // by the threshold exactly as the plain version does, the build uses no
 // fast-math flags, and a maximum is exact in any order.
 //
+// Length mode (the bucket-padded batches of the farm and of
+// Config(length_bucketing=N); the JAX package's masked rectify plus
+// `sliding_max_attack_truncated`, matchering_tpu/limiter.py:124-130 and
+// ops/sliding.py:73-95): `lengths`, when given, holds each row's true length
+// L (window <= L <= n, checked on the host).  The row then ends at L: the
+// mirrored edge reflects there (index j >= L reads 2L - j - 1), and gain and
+// slided are 0 at i >= L.  A tile wholly past L reads nothing and writes
+// only zeros.  Without `lengths` every row is full (L = n).
+//
 // What bounds it on an H100: bytes.  It reads the track once (8 bytes per
 // sample in float32) and writes two float32 outputs (8 bytes per sample),
-// 127 MB at n = 7,938,000, 37.9 us at 3.35 TB/s.
+// 127 MB at n = 7,938,000, 37.9 us at 3.35 TB/s; over a padded batch it
+// moves 16 bytes per padded sample less 8 per sample past a row's length.
 //
-// Design: a block owns a tile of kTile = kThreads * kRun = 8192 outputs.
+// Design: the grid is (tiles, rows); a block owns a tile of
+// kTile = kThreads * kRun = 8192 outputs of one row.
 //   1. It computes the gains of its tile plus the (window - 1) halo straight
 //      into shared memory, reading the stereo track with 16-byte vector
 //      loads (float4: two stereo samples; double2: one), consecutive threads
@@ -80,31 +91,46 @@ __device__ __forceinline__ T max_of(T a, T b) {
   return b > a ? b : a;
 }
 
-// gain of sample j with 'reflect' edges (j in [-half, n + half))
+// gain of sample j of a row of length len with 'reflect' edges
+// (j in [-half, len + half))
 template <typename T>
-__device__ __forceinline__ T edge_gain(const T* __restrict__ x, long long j, long long n,
+__device__ __forceinline__ T edge_gain(const T* __restrict__ x, long long j, long long len,
                                        T threshold) {
-  j = j < 0 ? -j - 1 : 2 * n - j - 1;
+  j = j < 0 ? -j - 1 : 2 * len - j - 1;
   return hard_clip_gain(x[2 * j], x[2 * j + 1], threshold);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     envelope_kernel(const T* __restrict__ x, T* __restrict__ gain, T* __restrict__ slided,
-                    long long n, T threshold, int window) {
+                    const long long* __restrict__ lengths, long long n, T threshold,
+                    int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* g = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x;
   const int half = window / 2;
   const int span = kTile + window - 1;
+  const long long row = blockIdx.y;
+  const long long len = lengths ? lengths[row] : n;  // the row ends here
   const long long start = static_cast<long long>(blockIdx.x) * kTile;
   const long long first = start - half;  // sample of span position 0
+  const int outputs = static_cast<int>(n - start < kTile ? n - start : kTile);
+  x += 2 * row * n;
+  gain += row * n;
+  slided += row * n;
+  if (start >= len) {  // wholly past the row's end
+    store_each<kThreads>(gain + start, outputs, [](int) { return T(0); });
+    store_each<kThreads>(slided + start, outputs, [](int) { return T(0); });
+    return;
+  }
+  // outputs of this tile before the row's end; the rest are written as 0
+  const int valid = static_cast<int>(len - start < outputs ? len - start : outputs);
 
-  // 1. gains of the samples [first, first + span): those inside the track
+  // 1. gains of the samples [first, first + span): those inside the row
   //    16 bytes a load, the mirrored edges by index, and zeros past the
   //    mirrored tail (they feed no output)
   const long long lo = first > 0 ? first : 0;
-  const long long hi = first + span < n ? first + span : n;
+  const long long hi = first + span < len ? first + span : len;
   {
     constexpr int S = 8 / sizeof(T);  // stereo samples per 16-byte vector
     using VT = typename Vec<T>::type;
@@ -134,18 +160,18 @@ __global__ void __launch_bounds__(kThreads)
       g[slot(base + m)] = hard_clip_gain(src[2 * m], src[2 * m + 1], threshold);
     }
     for (int t = tid; t < base; t += kThreads) {  // before sample 0
-      g[slot(t)] = edge_gain(x, first + t, n, threshold);
+      g[slot(t)] = edge_gain(x, first + t, len, threshold);
     }
-    for (int t = base + count + tid; t < span; t += kThreads) {  // past sample n - 1
+    for (int t = base + count + tid; t < span; t += kThreads) {  // past sample len - 1
       const long long j = first + t;
-      g[slot(t)] = j < n + half ? edge_gain(x, j, n, threshold) : T(0);
+      g[slot(t)] = j < len + half ? edge_gain(x, j, len, threshold) : T(0);
     }
   }
   __syncthreads();
 
   // 2. the block's gains
-  const int outputs = static_cast<int>(n - start < kTile ? n - start : kTile);
-  store_each<kThreads>(gain + start, outputs, [&](int m) { return g[slot(m + half)]; });
+  store_each<kThreads>(gain + start, outputs,
+                       [&](int m) { return m < valid ? g[slot(m + half)] : T(0); });
 
   // 3. this thread's window maxima: output k of the run is the max of
   //    g[base + k .. base + k + window - 1]
@@ -182,14 +208,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < kRun; ++k) g[slot(base + k)] = out[k];
   __syncthreads();
-  store_each<kThreads>(slided + start, outputs, [&](int m) { return g[slot(m)]; });
+  store_each<kThreads>(slided + start, outputs,
+                       [&](int m) { return m < valid ? g[slot(m)] : T(0); });
 }
 
 template <typename T>
-int launch(const T* x, T* gain, T* slided, long long n, double threshold, int window,
-           cudaStream_t stream) {
-  if (n <= 0) return 0;
-  if (window < 1 || window - 1 > kMaxHalo || n < window) {
+int launch(const T* x, T* gain, T* slided, const long long* lengths, long long rows,
+           long long n, double threshold, int window, cudaStream_t stream) {
+  if (n <= 0 || rows <= 0) return 0;
+  if (window < 1 || window - 1 > kMaxHalo || n < window || rows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long blocks = (n + kTile - 1) / kTile;
@@ -199,8 +226,9 @@ int launch(const T* x, T* gain, T* slided, long long n, double threshold, int wi
         envelope_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  envelope_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      x, gain, slided, n, static_cast<T>(threshold), window);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(rows));
+  envelope_kernel<T><<<grid, kThreads, smem, stream>>>(
+      x, gain, slided, lengths, n, static_cast<T>(threshold), window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -212,18 +240,22 @@ int mtpu_envelope_max_halo() { return kMaxHalo; }
 
 int mtpu_envelope_tile() { return kTile; }
 
-int mtpu_envelope_f32(const void* x, void* gain, void* slided, long long n,
-                      double threshold, int window, void* stream) {
+// `lengths`: null, or a device array of `rows` int64 true lengths, each in
+// [window, n] (the wrapper checks its host copy).
+int mtpu_envelope_f32(const void* x, void* gain, void* slided, const void* lengths,
+                      long long rows, long long n, double threshold, int window,
+                      void* stream) {
   return launch(static_cast<const float*>(x), static_cast<float*>(gain),
-                static_cast<float*>(slided), n, threshold, window,
-                static_cast<cudaStream_t>(stream));
+                static_cast<float*>(slided), static_cast<const long long*>(lengths), rows,
+                n, threshold, window, static_cast<cudaStream_t>(stream));
 }
 
-int mtpu_envelope_f64(const void* x, void* gain, void* slided, long long n,
-                      double threshold, int window, void* stream) {
+int mtpu_envelope_f64(const void* x, void* gain, void* slided, const void* lengths,
+                      long long rows, long long n, double threshold, int window,
+                      void* stream) {
   return launch(static_cast<const double*>(x), static_cast<double*>(gain),
-                static_cast<double*>(slided), n, threshold, window,
-                static_cast<cudaStream_t>(stream));
+                static_cast<double*>(slided), static_cast<const long long*>(lengths), rows,
+                n, threshold, window, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -6,7 +6,10 @@
 //     y[i] = b0*x[i] + b1*x[i-1] - a1*y[i-1],   y[0] = b0*x[0] + zi
 //
 // optionally scanning from the end of the row (`reverse`), which is the
-// backward pass of filtfilt without flipping the track.  It replaces the
+// backward pass of filtfilt without flipping the track.  With `lengths`, row
+// r is filtered over its first L_r samples only (the rows of a zero-padded
+// batch at their true lengths): `reverse` starts at L_r - 1, zi enters at
+// the first scanned sample, and y is 0 at and past L_r.  It replaces the
 // XLA scans of matchering_tpu/ops/iir.py (`scan_first_order`, the shift
 // ladder, and the double-single `scan_first_order_ds` machinery, lines
 // 105-822), which existed because the TPU has no float64: at the limiter's
@@ -81,6 +84,16 @@
 //     thread's run too; the threads past the end scan nothing, and as no
 //     tile follows the last one, the factors that assume full runs only
 //     reach states that are never used.
+//   * Ragged rows (`lengths`).  Tiles follow the row's own length L: scan
+//     position k is sample k, or L - 1 - k in reverse, so in reverse the
+//     first tile starts at the row's true end and the look-back never walks
+//     through padding (which would decay the carry by pole^(n - L)).  The
+//     grid still holds ceil(n / kTile) tiles per row; a tile at or past
+//     ceil(L / kTile) scans nothing, publishes nothing and returns, and no
+//     tile waits on it, since look-back only reads earlier tiles of the row.
+//     Every tile t also writes the zeros of y over samples
+//     [t kTile, (t + 1) kTile) that lie at or past L, so [L, n) is covered
+//     once in both directions.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -189,9 +202,9 @@ __device__ __forceinline__ double look_back(unsigned long long* aggregates,
 template <typename T>
 __global__ void __launch_bounds__(kThreads, min_blocks(sizeof(T)))
     scan_kernel(const T* __restrict__ x, T* __restrict__ y, const double* __restrict__ zi,
-                long long n, long long tiles, double b0, double b1, double pole, Powers pw,
-                int reverse, unsigned long long* aggregates, unsigned long long* prefixes,
-                unsigned long long* counter) {
+                const long long* __restrict__ lengths, long long n, long long tiles, double b0,
+                double b1, double pole, Powers pw, int reverse, unsigned long long* aggregates,
+                unsigned long long* prefixes, unsigned long long* counter) {
   __shared__ T buf[kTile + kThreads];
   __shared__ double warp_state[kWarps];
   __shared__ long long tile_id;
@@ -204,8 +217,17 @@ __global__ void __launch_bounds__(kThreads, min_blocks(sizeof(T)))
   const long long row = tile_id / tiles;
   const long long b = tile_id % tiles;
   const long long k0 = b * kTile;  // first scan position of the tile
-  const int len = static_cast<int>(min(static_cast<long long>(kTile), n - k0));
-  const long long lo = reverse ? n - k0 - len : k0;  // first sample in memory order
+  const long long row_len = lengths ? lengths[row] : n;  // the row ends here
+  if (row_len < n) {  // this tile's share of the zeros past the row's end
+    const long long z0 = max(k0, row_len);
+    const long long z1 = min(k0 + kTile, n);
+    if (z1 > z0) {
+      store_each<kThreads>(y + row * n + z0, static_cast<int>(z1 - z0), [](int) { return T(0); });
+    }
+  }
+  if (k0 >= row_len) return;  // past the row's end: no scan, no status
+  const int len = static_cast<int>(min(static_cast<long long>(kTile), row_len - k0));
+  const long long lo = reverse ? row_len - k0 - len : k0;  // first sample in memory order
   const T* xr = x + row * n;
   // thread 0's inputs from outside the tile, fetched beside the tile itself:
   // x at the scan position before the tile, or zi at the row's first sample
@@ -213,7 +235,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(sizeof(T)))
   double head = 0.0;  // added to the run's first drive
   if (tid == 0) {
     if (k0 > 0) {
-      prev = static_cast<double>(xr[reverse ? n - k0 : k0 - 1]);
+      prev = static_cast<double>(xr[reverse ? row_len - k0 : k0 - 1]);
     } else if (zi) {
       head = zi[row];
     }
@@ -299,9 +321,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(sizeof(T)))
 }
 
 template <typename T>
-int scan(const T* x, T* y, const double* zi, long long rows, long long n, double b0,
-         double b1, double pole, const double* powers, int reverse, void* scratch,
-         cudaStream_t stream) {
+int scan(const T* x, T* y, const double* zi, const long long* lengths, long long rows,
+         long long n, double b0, double b1, double pole, const double* powers, int reverse,
+         void* scratch, cudaStream_t stream) {
   const long long tiles = ceil_div(n, kTile);
   const long long total = rows * tiles;
   if (total > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -311,7 +333,7 @@ int scan(const T* x, T* y, const double* zi, long long rows, long long n, double
   unsigned long long* prefixes = aggregates + total;
   unsigned long long* counter = prefixes + total;
   scan_kernel<T><<<static_cast<unsigned>(total), kThreads, 0, stream>>>(
-      x, y, zi, n, tiles, b0, b1, pole, pw, reverse, aggregates, prefixes, counter);
+      x, y, zi, lengths, n, tiles, b0, b1, pole, pw, reverse, aggregates, prefixes, counter);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -327,24 +349,26 @@ int mtpu_scan_powers() { return kPowers; }
 
 // `powers`: host array of kPowers float64, pole^(kRun * 2^k).  `scratch`:
 // 2 * rows * ceil(n / kTile) + 1 zeroed 8-byte words (aggregates, inclusive
-// prefixes, tile counter).
-int mtpu_scan_f32(const void* x, void* y, const void* zi, long long rows, long long n,
-                  double b0, double b1, double a1, int reverse, const void* powers,
-                  void* scratch, void* stream) {
+// prefixes, tile counter).  `zi`: null, or `rows` float64 states on the
+// device.  `lengths`: null, or `rows` int64 lengths in [1, n] on the device
+// (the wrapper checks its host copy).
+int mtpu_scan_f32(const void* x, void* y, const void* zi, const void* lengths, long long rows,
+                  long long n, double b0, double b1, double a1, int reverse,
+                  const void* powers, void* scratch, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
   return scan(static_cast<const float*>(x), static_cast<float*>(y),
-              static_cast<const double*>(zi), rows, n, b0, b1, -a1,
-              static_cast<const double*>(powers), reverse, scratch,
+              static_cast<const double*>(zi), static_cast<const long long*>(lengths), rows,
+              n, b0, b1, -a1, static_cast<const double*>(powers), reverse, scratch,
               static_cast<cudaStream_t>(stream));
 }
 
-int mtpu_scan_f64(const void* x, void* y, const void* zi, long long rows, long long n,
-                  double b0, double b1, double a1, int reverse, const void* powers,
-                  void* scratch, void* stream) {
+int mtpu_scan_f64(const void* x, void* y, const void* zi, const void* lengths, long long rows,
+                  long long n, double b0, double b1, double a1, int reverse,
+                  const void* powers, void* scratch, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
   return scan(static_cast<const double*>(x), static_cast<double*>(y),
-              static_cast<const double*>(zi), rows, n, b0, b1, -a1,
-              static_cast<const double*>(powers), reverse, scratch,
+              static_cast<const double*>(zi), static_cast<const long long*>(lengths), rows,
+              n, b0, b1, -a1, static_cast<const double*>(powers), reverse, scratch,
               static_cast<cudaStream_t>(stream));
 }
 

@@ -1,0 +1,159 @@
+"""Batch mastering: many (target, reference) pairs in one call.
+
+Counterpart of ``matchering_tpu.farm`` (reference semantics per pair:
+``matchering/core.py:32-121``).  Each job is decoded and conditioned as in
+the single-pair path, both roles are bucket-padded on the device, every
+track is analysed and limited at its true length (``master_graph``'s
+dynamic path), and the outputs are cut back to their true lengths before
+encoding, so each job's files are what ``process()`` writes for its pair.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from .config import Config
+from .core import _assert_graph_ready, _ingest, _variant_key
+from .checker import check_equality
+from .io import save
+from .log import Code, ModuleError, debug, debug_line, info
+from .ops import basics
+from .parallel.batch import bucket_pad, master_batch, master_pairs, refuse_mesh
+from .preview import create_preview
+from .results import Result
+from .utils import get_temp_folder, resolve_device, to_device
+
+@dataclass(frozen=True)
+class PairJob:
+    """One mastering job: a target/reference file pair plus the outputs it
+    wants (the single-pair API's descriptors)."""
+
+    target: str
+    reference: str
+    results: List[Result] = field(default_factory=list)
+    preview_target: Optional[Result] = None
+    preview_result: Optional[Result] = None
+
+
+def _one_dtype(tracks, config: Config, device):
+    """A role's tracks as they are if they share a dtype; otherwise each
+    converted on the device to the working float (``basics.to_working_float``),
+    so raw integer codes are never promoted unscaled.  The JAX package
+    converts on the host to float64 instead; both round each code once to
+    the working dtype, so the values are the same."""
+    if len({str(t.dtype).replace("torch.", "") for t in tracks}) == 1:
+        return tracks
+    return [basics.to_working_float(to_device(t, device), config.torch_dtype) for t in tracks]
+
+
+def process_batch(
+    jobs: Sequence[PairJob],
+    config: Config = Config(),
+    mesh=None,
+    bucket_multiple: Optional[int] = None,
+    dispatch: str = "auto",
+    *,
+    device=None,
+) -> None:
+    """Master every job as one bucketed batch on ``device`` (``cuda``
+    unless named; no CPU fallback).
+
+    Each role is padded to its longest track rounded up to
+    ``bucket_multiple`` (default ``config.length_bucketing``, else 2^18
+    samples).  ``dispatch``: ``"pipelined"`` runs one graph per pair
+    (``master_pairs``), all enqueued before any result is read;
+    ``"vmapped"`` runs one batch-first graph over all pairs
+    (``master_batch``): one K1 and four K2 launches for the batch.
+    ``"auto"`` is ``"pipelined"``, as in the JAX package without a time
+    axis.  ``mesh`` is not ported: any mesh raises NotImplementedError."""
+    refuse_mesh(mesh)
+    if bucket_multiple is None:
+        bucket_multiple = config.length_bucketing or (1 << 18)
+    if dispatch == "auto":
+        dispatch = "pipelined"
+    if dispatch not in ("pipelined", "vmapped"):
+        raise ValueError(f"unknown dispatch strategy '{dispatch}'")
+    jobs = list(jobs)
+    if not jobs:
+        raise RuntimeError("The job list is empty")
+    for job in jobs:
+        if not job.results and not (job.preview_target or job.preview_result):
+            raise RuntimeError(f"Job '{job.target}' requests no outputs")
+    device = resolve_device(device)
+
+    debug(f"matchering_tpu_torch farm: {len(jobs)} pairs in one dispatch")
+    debug_line()
+    info(Code.INFO_LOADING)
+
+    targets, references = [], []
+    for job in jobs:
+        anchor = job.results or [
+            r for r in (job.preview_target, job.preview_result) if r is not None
+        ]
+        temp_folder = config.temp_folder or get_temp_folder(anchor)
+        target_track = _ingest(job.target, "target", config, temp_folder, device)
+        reference_track = _ingest(job.reference, "reference", config, temp_folder, device)
+        if not config.allow_equality:
+            check_equality(target_track[0], reference_track[0])
+        _assert_graph_ready((target_track, reference_track), config)
+        targets.append(target_track[0])
+        references.append(reference_track[0])
+    targets = _one_dtype(targets, config, device)
+    references = _one_dtype(references, config, device)
+
+    # the union of variants over all jobs: the graph renders each variant
+    # once for the batch, and each job takes what it asked for
+    wanted = {_variant_key(r) for job in jobs for r in job.results} or {"limited"}
+    needs = dict(
+        need_default="limited" in wanted,
+        need_no_limiter="raw" in wanted,
+        need_no_limiter_normalized="normalized" in wanted,
+    )
+    t_batch, t_lens = bucket_pad(targets, multiple=bucket_multiple, device=device)
+    r_batch, r_lens = bucket_pad(references, multiple=bucket_multiple, device=device)
+    debug(
+        f"buckets: targets {tuple(t_batch.shape)}, references {tuple(r_batch.shape)} "
+        f"(true lengths {t_lens} / {r_lens})"
+    )
+
+    if dispatch == "pipelined":
+        outs = master_pairs(
+            list(t_batch), list(r_batch), config, **needs,
+            target_lengths=t_lens, reference_lengths=r_lens, device=device,
+        )
+    else:
+        out = master_batch(
+            t_batch, r_batch, config, **needs,
+            target_lengths=t_lens, reference_lengths=r_lens, device=device,
+        )
+        outs = [out.row(i) for i in range(len(jobs))]
+    keys = {"limited": "result", "raw": "result_no_limiter", "normalized": "result_no_limiter_normalized"}
+
+    debug_line()
+    info(Code.INFO_EXPORTING)
+    for job, out, length, target in zip(jobs, outs, t_lens, targets):
+        for result in job.results:
+            rendered = getattr(out, keys[_variant_key(result)])
+            if rendered is None:  # unreachable: wanted covers every key
+                raise ModuleError(Code.ERROR_VALIDATION)
+            audio = rendered[:length].cpu().numpy().astype(np.float64)
+            save(result.file, audio, config.internal_sample_rate, result.subtype)
+        if job.preview_target or job.preview_result:
+            # the preview source is the first variant THIS job asked for
+            # (reference ``core.py:111-118``; the batch's union may hold
+            # variants the job never asked for); a preview-only job takes
+            # any rendered variant in the same order
+            job_wanted = {_variant_key(r) for r in job.results}
+            order = [k for k in keys if k in job_wanted] or list(keys)
+            source = next(
+                getattr(out, keys[k]) for k in order if getattr(out, keys[k]) is not None
+            )
+            create_preview(
+                target, source[:length], config, job.preview_target, job.preview_result
+            )
+
+    debug_line()
+    info(Code.INFO_COMPLETED)

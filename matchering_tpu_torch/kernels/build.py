@@ -22,6 +22,8 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PACKAGE, "csrc")
 BUILD_DIR = os.path.join(_PACKAGE, "_build")
@@ -40,13 +42,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mtpu_envelope_max_halo": (_I, []),
     "mtpu_envelope_tile": (_I, []),
-    "mtpu_envelope_f32": (_I, [_P, _P, _P, _LL, _D, _I, _P]),
-    "mtpu_envelope_f64": (_I, [_P, _P, _P, _LL, _D, _I, _P]),
+    "mtpu_envelope_f32": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _I, _P]),
+    "mtpu_envelope_f64": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _I, _P]),
     "mtpu_scan_run": (_I, []),
     "mtpu_scan_tile": (_I, []),
     "mtpu_scan_powers": (_I, []),
-    "mtpu_scan_f32": (_I, [_P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P]),
-    "mtpu_scan_f64": (_I, [_P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P]),
+    "mtpu_scan_f32": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P]),
+    "mtpu_scan_f64": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P]),
 }
 
 # C constants the Python wrappers mirror: C function -> (module, attribute)
@@ -137,6 +139,26 @@ def library() -> ctypes.CDLL:
             raise RuntimeError(f"{name}() is {got}, but {module}.{attribute} is {want}")
     _library = lib
     return lib
+
+
+def lengths_pointer(lengths, rows: int, n: int, minimum: int, device) -> int:
+    """The device address of a kernel's per-row lengths (None without
+    them), after checking their host copy: one per row, each in
+    [minimum, n], and the tensor int64, contiguous and on ``device``.
+    Nothing is read back from the card."""
+    if lengths is None:
+        return None
+    if len(lengths.host) != rows:
+        raise ValueError(f"{len(lengths.host)} lengths for {rows} rows")
+    for length in lengths.host:
+        if not minimum <= length <= n:
+            raise ValueError(f"length {length} is outside [{minimum}, {n}]")
+    tensor = lengths.device
+    if tensor.dtype != torch.int64 or tensor.device != device or not tensor.is_contiguous():
+        raise ValueError("lengths must be a contiguous int64 tensor on the input's device")
+    if tuple(tensor.shape) != (rows,):
+        raise ValueError(f"lengths tensor of shape {tuple(tensor.shape)} for {rows} rows")
+    return tensor.data_ptr()
 
 
 def check(status: int, name: str) -> None:

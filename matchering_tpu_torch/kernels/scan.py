@@ -1,8 +1,9 @@
 """K2: the first-order IIR scan — CUDA kernel wrapper and its plain twin.
 
-``first_order_filter(x, b0, b1, a1, zi, reverse)`` computes
+``first_order_filter(x, b0, b1, a1, zi, reverse, lengths)`` computes
 ``scipy.signal.lfilter([b0, b1], [1, a1], x, zi=[zi])`` along the last axis
-of a (rows, n) or (n,) tensor, from the end of each row when ``reverse``.
+of a (rows, n) or (n,) tensor, from the end of each row when ``reverse``,
+and with ``lengths`` over each row's first L samples only (0 past them).
 It replaces the XLA scans of ``matchering_tpu/ops/iir.py`` (lines 105-822);
 see ``csrc/scan.cu`` for the kernel's design and its bound.  The state, the
 pole and the coefficients are float64 on both paths, whatever the I/O type.
@@ -12,10 +13,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..utils import RowInts
 from . import build
 
 LAUNCHES = 0  # calls that launched the CUDA kernel
@@ -83,35 +85,65 @@ def _blocked_scan(drive: torch.Tensor, pole: float) -> torch.Tensor:
 
 
 def first_order_filter_plain(
-    x: torch.Tensor, b0: float, b1: float, a1: float, zi=None, reverse: bool = False
+    x: torch.Tensor,
+    b0: float,
+    b1: float,
+    a1: float,
+    zi=None,
+    reverse: bool = False,
+    lengths: Optional[RowInts] = None,
 ) -> torch.Tensor:
     """The twin of K2 in torch ops: the DF2T drive and a blocked scan, in
-    float64, cast back to the input dtype."""
+    float64, cast back to the input dtype.  With ``lengths`` the samples
+    at and past each row's length are zeroed first, and in reverse each
+    row's state enters at its last sample, so the scan over the zeros
+    beyond carries nothing into the row."""
     rows_x = x.reshape(-1, x.shape[-1]).to(torch.float64)
+    keep = None if lengths is None else lengths.mask(rows_x.shape[1])
+    if keep is not None:
+        rows_x = rows_x * keep
     if reverse:
         rows_x = torch.flip(rows_x, (1,))
     drive = b0 * rows_x
     drive[:, 1:] += b1 * rows_x[:, :-1]
     if zi is not None:
-        drive[:, 0] += torch.as_tensor(zi, dtype=torch.float64, device=x.device).reshape(-1)
+        states = torch.as_tensor(zi, dtype=torch.float64, device=x.device).reshape(-1)
+        if reverse and lengths is not None:
+            # the first scanned sample is the row's last, at n - L once flipped
+            n = drive.shape[1]
+            first = torch.arange(n, device=x.device) == (n - lengths.device)[:, None]
+            drive = drive + torch.where(first, states[:, None], 0.0)
+        else:
+            drive[:, 0] += states
     y = _blocked_scan(drive, -a1)
     if reverse:
         y = torch.flip(y, (1,))
+    if keep is not None:
+        y = y * keep
     return y.to(x.dtype).reshape(x.shape)
 
 
 def first_order_filter(
-    x: torch.Tensor, b0: float, b1: float, a1: float, zi=None, reverse: bool = False
+    x: torch.Tensor,
+    b0: float,
+    b1: float,
+    a1: float,
+    zi=None,
+    reverse: bool = False,
+    lengths: Optional[RowInts] = None,
 ) -> torch.Tensor:
     """``lfilter([b0, b1], [1, a1], x, zi=[zi])`` along the last axis.
 
     ``zi``: None, or a tensor with one initial state per row (any float
-    dtype; the kernel reads it as float64).  A CPU tensor runs the plain
-    twin; a CUDA tensor launches K2."""
+    dtype; the kernel reads it as float64).  ``lengths``: None, or each
+    row's length L (1 <= L <= n): the row is filtered over [0, L) only,
+    ``reverse`` starts at L - 1, ``zi`` enters at the first scanned sample,
+    and the output is 0 at and past L.  A CPU tensor runs the plain twin;
+    a CUDA tensor launches K2."""
     if x.ndim not in (1, 2):
         raise ValueError(f"expected a (n,) or (rows, n) tensor, got {tuple(x.shape)}")
     if x.device.type == "cpu":
-        return first_order_filter_plain(x, b0, b1, a1, zi, reverse)
+        return first_order_filter_plain(x, b0, b1, a1, zi, reverse, lengths)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.float64):
@@ -120,6 +152,7 @@ def first_order_filter(
         raise ValueError("the input must be contiguous")
     n = x.shape[-1]
     rows = 1 if x.ndim == 1 else x.shape[0]
+    lengths_ptr = build.lengths_pointer(lengths, rows, n, 1, x.device)
     zi_ptr = None
     if zi is not None:
         zi = torch.as_tensor(zi, device=x.device).to(torch.float64).reshape(-1).contiguous()
@@ -136,8 +169,8 @@ def first_order_filter(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = fn(
-            x.data_ptr(), y.data_ptr(), zi_ptr, rows, n, float(b0), float(b1), float(a1),
-            int(reverse), ctypes.addressof(powers), scratch.data_ptr(), stream,
+            x.data_ptr(), y.data_ptr(), zi_ptr, lengths_ptr, rows, n, float(b0), float(b1),
+            float(a1), int(reverse), ctypes.addressof(powers), scratch.data_ptr(), stream,
         )
     build.check(status, "scan kernel")
     LAUNCHES += 1

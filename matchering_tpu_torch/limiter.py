@@ -1,14 +1,17 @@
 """Hyrax brickwall limiter (PyTorch + kernels K1 and K2).
 
-Counterpart of ``matchering_tpu.limiter.limit`` on its static path
-(reference ``matchering/limiter/hyrax.py:32-99``): hard-clip gain from the
+Counterpart of ``matchering_tpu.limiter.limit`` (reference
+``matchering/limiter/hyrax.py:32-99``): hard-clip gain from the
 cross-channel peak, attack stage (centred sliding max + zero-phase
 one-pole smoothing), hold/release stage (causal sliding max + first-order
 Butterworth low-passes), final gain = 1 - max of the three envelopes.
 
-On every device the front end (gain and attack sliding max) is
+Batch-first: one (n, 2) track or a (B, n, 2) batch, whose rows may end at
+their own true lengths (the JAX package's ``length`` branch).  On every
+device the front end (gain and attack sliding max) is
 ``kernels.envelope.limiter_front_end``: K1 on CUDA, its plain twin on the
-CPU.  The four IIR passes go through K2 (``ops.iir``).
+CPU.  The four IIR passes go through K2 (``ops.iir``): one K1 and four K2
+launches per call, whatever the batch size.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 from .config import Config
 from .kernels import envelope
 from .ops import basics, iir, sliding
-from .utils import ms_to_samples
+from .utils import RowInts, ms_to_samples
 
 
 def _release_stage(slided_attack: torch.Tensor, config: Config) -> torch.Tensor:
@@ -42,26 +45,37 @@ def _release_stage(slided_attack: torch.Tensor, config: Config) -> torch.Tensor:
     return torch.maximum(hold_out, release_out)
 
 
-def limit(array: torch.Tensor, config: Config) -> torch.Tensor:
-    """Brickwall-limit a stereo (n, 2) tensor at ``config.threshold`` on
-    the tensor's own device.
+def limit(array: torch.Tensor, config: Config, length=None) -> torch.Tensor:
+    """Brickwall-limit a stereo (n, 2) tensor, or each row of a (B, n, 2)
+    batch, at ``config.threshold`` on the tensor's own device.
+
+    ``length`` (a batch only): each row's true length, as ``RowInts`` or
+    host ints (those are staged on the device).  The envelope at and past
+    it is "no overage", the attack stage reflects at it, and the output
+    there is 0 (``matchering_tpu/limiter.py:93-143``): row r on [0, L_r)
+    equals ``limit(array[r, :L_r])``.
 
     The reference's early-out (``hyrax.py:83-85``: nothing exceeds the
     threshold within ``np.isclose`` tolerance, so the input passes through)
-    stays branch-free, a ``torch.where`` on the device with no host sync.
-    It reads K1's gain: |rectified - 1| <= tol  <=>  gain <= tol/(1+tol),
-    since rectified >= 1 and gain = 1 - 1/rectified is monotone."""
+    is per row and stays branch-free, a ``torch.where`` on the device with
+    no host sync.  It reads K1's gain: |rectified - 1| <= tol  <=>
+    gain <= tol/(1+tol), since rectified >= 1 and gain = 1 - 1/rectified
+    is monotone."""
     if not isinstance(array, torch.Tensor):
         array = torch.as_tensor(array)
+    if length is not None and not isinstance(length, RowInts):
+        length = RowInts.of(length, array.device)
     tolerance = 1e-8 + 1e-5 * 1.0  # np.isclose defaults (hyrax.py:83)
     attack = ms_to_samples(config.limiter.attack, config.internal_sample_rate)
     gain_hard_clip, slided = envelope.limiter_front_end(
-        array.contiguous(), config.threshold, attack
+        array.contiguous(), config.threshold, attack, length
     )
     smoother = iir.one_pole_filter(config.limiter.attack_filter_coefficient, attack)
-    gain_attack = iir.filtfilt_first_order(smoother, slided)
+    gain_attack = iir.filtfilt_first_order(smoother, slided, length)
     gain_release = _release_stage(slided, config)
-    not_needed = torch.all(gain_hard_clip <= tolerance / (1.0 + tolerance))
+    not_needed = torch.all(gain_hard_clip <= tolerance / (1.0 + tolerance), dim=-1)
 
     gain = basics.flip(basics.max_mix(gain_hard_clip, gain_attack, gain_release))
-    return torch.where(not_needed, array, array * gain[:, None])
+    if length is not None:
+        gain = gain * length.mask(array.shape[-2], gain.dtype)
+    return torch.where(not_needed[..., None, None], array, array * gain[..., None])

@@ -3,8 +3,13 @@
 Counterpart of ``matchering_tpu.ops.basics`` (reference
 ``matchering/dsp.py:25-152``).  Every function takes and returns tensors on
 the caller's device and never synchronises with the host: scalars such as
-the normalisation coefficient stay 0-dim tensors.  The reference's
-boolean-index reductions are masked arithmetic, as in the JAX package.
+the normalisation coefficient stay tensors.  The reference's boolean-index
+reductions are masked arithmetic, as in the JAX package.
+
+Batch-first: a track is (..., n, 2), a channel (..., n), and a per-track
+scalar has the leading shape (...), so one call serves a single pair (no
+leading axis) and a batch of B rows alike.  The JAX package ``vmap``s its
+single-track functions instead.
 """
 
 from __future__ import annotations
@@ -17,16 +22,22 @@ import torch
 # Channel transforms
 
 
+def per_row(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-track value of shape (...) reshaped to broadcast against
+    ``like`` of shape (..., n) or (..., n, 2)."""
+    return value.reshape(value.shape + (1,) * (like.ndim - value.ndim))
+
+
 def lr_to_ms(array: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stereo (n, 2) -> mid/side pair of (n,) tensors:
+    """Stereo (..., n, 2) -> mid/side pair of (..., n) tensors:
     mid = (L + R) / 2, side = mid - R (reference ``dsp.py:57-64``)."""
-    mid = (array[:, 0] + array[:, 1]) * 0.5
-    side = mid - array[:, 1]
+    mid = (array[..., 0] + array[..., 1]) * 0.5
+    side = mid - array[..., 1]
     return mid, side
 
 
 def ms_to_lr(mid: torch.Tensor, side: torch.Tensor) -> torch.Tensor:
-    """Mid/side -> stereo (n, 2): L = mid + side, R = mid - side
+    """Mid/side -> stereo (..., n, 2): L = mid + side, R = mid - side
     (reference ``dsp.py:67-68``)."""
     return torch.stack([mid + side, mid - side], dim=-1)
 
@@ -36,8 +47,10 @@ def ms_to_lr(mid: torch.Tensor, side: torch.Tensor) -> torch.Tensor:
 
 
 def clip(array: torch.Tensor, to=1.0) -> torch.Tensor:
-    """Clamp to [-to, to]; ``to`` may be a float or a 0-dim tensor."""
+    """Clamp to [-to, to]; ``to`` may be a float or a tensor of one
+    threshold per track (shape (...) of ``array``'s leading axes)."""
     if isinstance(to, torch.Tensor):
+        to = per_row(to, array)
         return torch.minimum(torch.maximum(array, -to), to)
     return torch.clamp(array, -to, to)
 
@@ -61,7 +74,7 @@ def rectify(array: torch.Tensor, threshold: float) -> torch.Tensor:
     The threshold is a tensor on the array's device, so the division is a
     true division on every device (a host scalar divisor may be turned
     into a multiplication by its reciprocal, which rounds differently)."""
-    peak = torch.amax(torch.abs(array), dim=1)
+    peak = torch.amax(torch.abs(array), dim=-1)
     thr = torch.full((), threshold, dtype=array.dtype, device=array.device)
     return torch.maximum(peak, thr) / thr
 
@@ -69,18 +82,19 @@ def rectify(array: torch.Tensor, threshold: float) -> torch.Tensor:
 def normalize(
     array: torch.Tensor, threshold: float, epsilon: float, normalize_clipped: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Peak-normalise to ``threshold`` (reference ``dsp.py:89-100``).
+    """Peak-normalise each stereo track (..., n, 2) to ``threshold``
+    (reference ``dsp.py:89-100``).
 
     Quiet material is boosted so its peak lands on the threshold; material
     at or above it is left alone unless ``normalize_clipped``.  Returns the
-    scaled array and the 0-dim coefficient that was divided out."""
-    max_value = torch.amax(torch.abs(array))
+    scaled array and the per-track coefficient (...) that was divided out."""
+    max_value = torch.amax(torch.abs(array), dim=(-2, -1))
     coefficient = torch.clamp(max_value / threshold, min=epsilon)
     if not normalize_clipped:
         coefficient = torch.where(
             max_value < threshold, coefficient, torch.ones_like(coefficient)
         )
-    return array / coefficient, coefficient
+    return array / per_row(coefficient, array), coefficient
 
 
 def fade(array: torch.Tensor, fade_size: int) -> torch.Tensor:
@@ -99,31 +113,90 @@ def fade(array: torch.Tensor, fade_size: int) -> torch.Tensor:
 
 
 def rms(array: torch.Tensor) -> torch.Tensor:
-    """Root mean square of a 1-D tensor (reference ``dsp.py:76-77``)."""
-    return torch.sqrt(torch.dot(array, array) / array.shape[0])
+    """Root mean square along the last axis (reference ``dsp.py:76-77``)."""
+    return torch.sqrt(torch.sum(torch.square(array), dim=-1) / array.shape[-1])
 
 
 def piece_rms_flat(array: torch.Tensor, piece_size: int, divisions: int) -> torch.Tensor:
-    """Per-piece RMS of the first ``divisions * piece_size`` samples
-    (reference ``dsp.py:71-86``: unfold, then a row-wise RMS)."""
-    pieces = array[: piece_size * divisions].reshape(divisions, piece_size)
+    """Per-piece RMS (..., divisions) of the first ``divisions * piece_size``
+    samples of each channel (reference ``dsp.py:71-86``: unfold, then a
+    row-wise RMS)."""
+    pieces = array[..., : piece_size * divisions]
+    pieces = pieces.reshape(pieces.shape[:-1] + (divisions, piece_size))
     return torch.sqrt(torch.mean(torch.square(pieces), dim=-1))
 
 
+_CHUNK = 4096  # the aligned chunk of the dynamic piece sums (the JAX package's)
+
+
+def piece_rms_dynamic(
+    array: torch.Tensor, piece_size: torch.Tensor, divisions: torch.Tensor, div_max: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`piece_rms_flat` with per-row piece geometry, for the channels
+    (B, n) of a zero-padded batch (``matchering_tpu.ops.basics``
+    ``piece_rms_dynamic``; reference exact-length analysis,
+    ``match_levels.py:47-59``).  ``piece_size`` and ``divisions`` are (B,)
+    int64 tensors; ``div_max`` bounds ``divisions`` on the host.
+
+    The energy is summed over aligned chunks of 4096 samples and each piece
+    total is the difference of two entries of the chunks' cumulative sum
+    plus two partial-chunk corrections, gathered from the (div_max + 1)
+    boundary chunks of each row.  The cumulative sum and the corrections
+    are taken in float64 whatever the working dtype: in float32 a sum over millions
+    of samples would lose the difference of two large partial sums.
+    Returns ``(rmses, valid)``, each (B, div_max); entries at or past a
+    row's division count are meaningless and 0 in ``valid``."""
+    dtype = array.dtype
+    rows, n = array.shape
+    m = -(-n // _CHUNK)
+    n_used = piece_size * divisions
+    energy = torch.square(array) * (torch.arange(n, device=array.device) < n_used[:, None])
+    chunks = torch.nn.functional.pad(energy, (0, m * _CHUNK - n)).reshape(rows, m, _CHUNK)
+    chunk_sums = torch.sum(chunks, dim=-1).to(torch.float64)
+    cum = torch.nn.functional.pad(torch.cumsum(chunk_sums, dim=-1), (1, 0))  # (B, m + 1)
+
+    bounds = torch.arange(div_max + 1, device=array.device) * piece_size[:, None]
+    j = torch.clamp(bounds // _CHUNK, max=m)
+    o = bounds % _CHUNK
+    flat = (torch.arange(rows, device=array.device)[:, None] * m + torch.clamp(j, max=m - 1))
+    boundary = chunks.reshape(rows * m, _CHUNK).index_select(0, flat.reshape(-1))
+    boundary = boundary.reshape(rows, div_max + 1, _CHUNK)
+    before = torch.arange(_CHUNK, device=array.device) < o[..., None]
+    partial = torch.sum(boundary * before, dim=-1).to(torch.float64)
+
+    ends = torch.gather(cum, 1, j)
+    totals = (ends[:, 1:] - ends[:, :-1]) - partial[:, :-1] + partial[:, 1:]
+    rmses = torch.sqrt(torch.clamp(totals, min=0.0) / piece_size[:, None]).to(dtype)
+    valid = (torch.arange(div_max, device=array.device) < divisions[:, None]).to(dtype)
+    return rmses, valid
+
+
 def masked_rms(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """RMS over the entries selected by a 0/1 ``mask``:
+    """RMS over the entries selected by a 0/1 ``mask`` along the last axis:
     sqrt(sum(mask*v^2) / max(sum(mask), 1))."""
-    weight = torch.clamp(torch.sum(mask), min=1.0)
-    total = torch.sum(torch.square(values) * mask)
+    weight = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    total = torch.sum(torch.square(values) * mask, dim=-1)
     return torch.sqrt(total / weight)
 
 
 def loudest_piece_stats(rmses: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Loudest-piece mask and match RMS (reference ``match_levels.py:62-71``):
     a piece is "loudest" when its RMS >= the RMS of all piece RMSes; the
-    match RMS is the RMS of the selected pieces' RMSes."""
+    match RMS is the RMS of the selected pieces' RMSes.  ``rmses`` is
+    (..., divisions)."""
     average_rms = rms(rmses)
-    mask = (rmses >= average_rms).to(rmses.dtype)
+    mask = (rmses >= average_rms[..., None]).to(rmses.dtype)
+    return mask, masked_rms(rmses, mask)
+
+
+def loudest_piece_stats_masked(
+    rmses: torch.Tensor, valid: torch.Tensor, divisions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`loudest_piece_stats` over the ``valid`` prefix of each row of
+    (B, div_max) piece RMSes: the average divides by the row's own
+    ``divisions`` (B,), and invalid pieces are never selected."""
+    average_rms = torch.sqrt(torch.sum(torch.square(rmses) * valid, dim=-1) / divisions)
+    mask = (rmses >= average_rms[:, None]).to(rmses.dtype) * valid
     return mask, masked_rms(rmses, mask)
 
 

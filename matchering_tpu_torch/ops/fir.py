@@ -19,7 +19,7 @@ def hann_symmetric(n: int, dtype, device) -> torch.Tensor:
 
 
 def fir_from_magnitude(curve: torch.Tensor, fft_size: int) -> torch.Tensor:
-    """Magnitude curve (fft_size//2+1,) -> windowed linear-phase FIR
-    (fft_size,)."""
-    impulse = torch.fft.ifftshift(torch.fft.irfft(curve, n=fft_size))
+    """Magnitude curves (..., fft_size//2+1) -> windowed linear-phase FIRs
+    (..., fft_size); the shift moves the last axis only."""
+    impulse = torch.fft.ifftshift(torch.fft.irfft(curve, n=fft_size), dim=-1)
     return impulse * hann_symmetric(fft_size, impulse.dtype, impulse.device)

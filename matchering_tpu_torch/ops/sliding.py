@@ -8,9 +8,12 @@ Counterpart of ``matchering_tpu.ops.sliding`` (reference
   duplicate the edge sample (numpy's ``symmetric``; ``F.pad``'s 'reflect'
   does not, so the mirrored edges are built with ``flip`` and ``cat``);
 * ``sliding_max_attack`` / ``sliding_max_hold`` are the limiter's two
-  window modes (centred odd window; causal left-zero-padded window).
+  window modes (centred odd window; causal left-zero-padded window);
+* ``sliding_max_attack_truncated`` is the centred window of each row of a
+  zero-padded batch with the row reflected at its own true length.
 
-The max over a window is built by shift doubling: ceil(log2(window))
+Every function works along the last axis, so (n,) and (B, n) take the same
+call.  The max over a window is built by shift doubling: ceil(log2(window))
 full-length ``torch.maximum`` passes.
 """
 
@@ -18,18 +21,18 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import make_odd
+from ..utils import RowInts, make_odd
 
 
 def _start_max(padded: torch.Tensor, window: int) -> torch.Tensor:
-    """max over padded[j : j + window] for every valid start j
+    """max over padded[..., j : j + window] for every valid start j
     (length len(padded) - window + 1)."""
     out = padded
     span = 1
     while span < window:
         step = min(span, window - span)
-        cur = out.shape[0]
-        out = torch.maximum(out[: cur - step], out[step:])
+        cur = out.shape[-1]
+        out = torch.maximum(out[..., : cur - step], out[..., step:])
         span += step
     return out
 
@@ -38,9 +41,9 @@ def max_filter1d(array: torch.Tensor, size: int) -> torch.Tensor:
     """``scipy.ndimage.maximum_filter1d(array, size, mode='reflect')``."""
     left = size // 2
     right = size - left - 1
-    head = torch.flip(array[:left], (0,))
-    tail = torch.flip(array[array.shape[0] - right :], (0,))
-    return _start_max(torch.cat([head, array, tail]), size)
+    head = torch.flip(array[..., :left], (-1,))
+    tail = torch.flip(array[..., array.shape[-1] - right :], (-1,))
+    return _start_max(torch.cat([head, array, tail], dim=-1), size)
 
 
 def sliding_max_attack(array: torch.Tensor, window_size: int) -> torch.Tensor:
@@ -48,6 +51,31 @@ def sliding_max_attack(array: torch.Tensor, window_size: int) -> torch.Tensor:
     ``hyrax.py:35-37``): odd window of ``2*make_odd(window_size) - 1`` with
     reflect edges."""
     return max_filter1d(array, 2 * make_odd(window_size) - 1)
+
+
+def sliding_max_attack_truncated(
+    array: torch.Tensor, window_size: int, lengths: RowInts
+) -> torch.Tensor:
+    """:func:`sliding_max_attack` of each row of a (B, n) batch as if the
+    row ended at its true length L (``matchering_tpu.ops.sliding``
+    ``sliding_max_attack_truncated``: 'reflect' at the exact track end),
+    and 0 at and past L.
+
+    The row is read through a mirror at L: index ``j >= L`` reads
+    ``2L - j - 1``.  That needs every L to be at least the window (which
+    the JAX form needs twice over: it re-slices ``2 * window`` samples
+    before L).  This is the plain twin of K1's length mode."""
+    size = 2 * make_odd(window_size) - 1
+    left = size // 2
+    right = size - left - 1
+    n = array.shape[-1]
+    j = torch.arange(n + right, device=array.device)
+    lengths_col = lengths.device[:, None]
+    mirrored = torch.where(j < lengths_col, j, 2 * lengths_col - 1 - j).clamp(0, n - 1)
+    extended = torch.gather(array, -1, mirrored)  # (B, n + right)
+    head = torch.flip(array[..., :left], (-1,))
+    out = _start_max(torch.cat([head, extended], dim=-1), size)
+    return out * lengths.mask(n, out.dtype)
 
 
 def sliding_max_hold(array: torch.Tensor, window_size: int) -> torch.Tensor:
@@ -58,5 +86,5 @@ def sliding_max_hold(array: torch.Tensor, window_size: int) -> torch.Tensor:
     gain envelopes are non-negative, so that is exact.)"""
     half = (window_size - 1) // 2
     left = window_size // 2
-    pad_left = torch.zeros(half + left, dtype=array.dtype, device=array.device)
-    return _start_max(torch.cat([pad_left, array]), window_size)
+    pad_left = array.new_zeros(array.shape[:-1] + (half + left,))
+    return _start_max(torch.cat([pad_left, array], dim=-1), window_size)

@@ -86,14 +86,15 @@ def host_operators_for_config(config) -> Tuple[np.ndarray, np.ndarray]:
 def smooth_exponentially(
     matching_fft: torch.Tensor, operators: Tuple[torch.Tensor, torch.Tensor]
 ) -> torch.Tensor:
-    """Smooth a matching spectrum (fft_size//2 + 1,) on the log grid with
-    the folded ``(to_log, to_lin)`` operator pair on its device.
+    """Smooth matching spectra (..., fft_size//2 + 1) on the log grid with
+    the folded ``(to_log, to_lin)`` operator pair on their device; both
+    products contract the last axis, so a batch of curves is one product.
 
     The caller keeps float32 matmuls at full precision
     (``torch.backends.cuda.matmul.allow_tf32 = False``, set in
     ``stages.master``): TF32 keeps about three decimal digits."""
     to_log, to_lin = operators
-    filtered = to_lin @ (to_log @ matching_fft)
-    filtered[0] = 0.0
-    filtered[1] = matching_fft[1]
+    filtered = (matching_fft @ to_log.mT) @ to_lin.mT
+    filtered[..., 0] = 0.0
+    filtered[..., 1] = matching_fft[..., 1]
     return filtered

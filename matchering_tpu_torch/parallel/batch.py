@@ -1,0 +1,176 @@
+"""Mastering many (target, reference) pairs on one device (PyTorch).
+
+Counterpart of ``matchering_tpu/parallel/batch.py``.  Pairs of one batch
+are zero-padded to a shared bucket per role (``bucket_pad``), and each
+track's true length rides along, host ints beside a staged device tensor
+(``utils.RowInts``): piece division, analysis and the limiter's end follow
+each track's exact length, so row i reproduces the single-pair master of
+unpadded pair i (the reference analyses the exact track length,
+``match_levels.py:47-59``), and samples past the length come back 0.
+
+Two dispatches, as in the JAX package:
+
+* ``master_batch`` runs ONE batch-first graph over the B rows: one set of
+  launches for the batch (one K1 and four K2 launches in its limiter);
+* ``master_pairs`` runs one graph per pair, all enqueued before any result
+  is read, optionally round-robin over several devices.
+
+There is no compile to amortise in eager PyTorch, so the two differ only
+in launch count and kernel widths; their speed on the card is measured by
+``chip_smoke.py`` (``PERF.md``).  Lengths are checked while they are host
+ints, and tracks, lengths and operators are staged before any graph runs,
+since a pageable host-to-device copy waits for the device.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..config import Config
+from ..stages import MasterOutput, check_lengths, master_graph
+from ..state import operators_for_config
+from ..utils import RowInts, resolve_device, to_device
+
+
+def refuse_mesh(mesh) -> None:
+    """Raise for any device mesh: meshes are not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "device meshes are not ported to matchering_tpu_torch yet (ROADMAP.md queue 3)"
+        )
+
+
+def bucket_pad(
+    tracks: Sequence, multiple: int = 1 << 18, device=None
+) -> Tuple[torch.Tensor, List[int]]:
+    """Zero-pad (n_i, 2) tracks (host arrays or tensors) to one shared
+    length, the longest rounded up to ``multiple``, as one (B, n_pad, 2)
+    tensor built on ``device`` (``cuda`` unless named), each track copied
+    straight into its row.  Returns the batch and the true lengths.
+
+    The tracks must share one dtype: stacking raw integer PCM with floats
+    would promote the codes unscaled (convert first, as ``process_batch``
+    does with ``basics.to_working_float``)."""
+    device = resolve_device(device)
+    lengths = [int(t.shape[0]) for t in tracks]
+    n_pad = -(-max(lengths) // multiple) * multiple
+    batch = None
+    for i, track in enumerate(tracks):
+        track = to_device(track, device)
+        if batch is None:
+            batch = track.new_zeros((len(tracks), n_pad) + tuple(track.shape[1:]))
+        if track.dtype != batch.dtype:
+            raise ValueError(f"tracks of one bucket must share a dtype: {track.dtype} and {batch.dtype}")
+        batch[i, : lengths[i]] = track
+    return batch, lengths
+
+
+def master_batch(
+    targets,
+    references,
+    config: Config = Config(),
+    mesh=None,
+    need_default: bool = True,
+    need_no_limiter: bool = False,
+    need_no_limiter_normalized: bool = False,
+    target_lengths: Optional[Sequence[int]] = None,
+    reference_lengths: Optional[Sequence[int]] = None,
+    *,
+    device=None,
+) -> MasterOutput:
+    """Master a batch of pairs, targets (B, n, 2) x references (B, m, 2),
+    as one batch-first graph on ``device`` (``cuda`` unless named).
+
+    ``target_lengths`` / ``reference_lengths`` (B host ints each, both or
+    neither): the true lengths of bucket-padded rows (``bucket_pad``);
+    row i then equals the single-pair master of unpadded pair i, and its
+    samples past the length are 0 (trim on the host).  Without them the
+    padded length is the analysis length (right only for tracks that fill
+    the bucket).  ``mesh`` is not ported: any mesh raises."""
+    refuse_mesh(mesh)
+    device = resolve_device(device)
+    if len(targets) != len(references):
+        raise ValueError("targets and references differ in count")
+    if (target_lengths is None) != (reference_lengths is None):
+        raise ValueError("pass both target_lengths and reference_lengths, or neither")
+    if target_lengths is not None:  # checked on the host, then staged
+        target_lengths = RowInts.of(
+            check_lengths(target_lengths, targets.shape[1], config, "target"), device
+        )
+        reference_lengths = RowInts.of(
+            check_lengths(reference_lengths, references.shape[1], config, "reference"), device
+        )
+    targets = to_device(targets, device)
+    references = to_device(references, device)
+    return master_graph(
+        targets,
+        references,
+        config,
+        operators_for_config(config, device),
+        need_default=need_default,
+        need_no_limiter=need_no_limiter,
+        need_no_limiter_normalized=need_no_limiter_normalized,
+        target_length=target_lengths,
+        reference_length=reference_lengths,
+    )
+
+
+def master_pairs(
+    targets: Sequence,
+    references: Sequence,
+    config: Config = Config(),
+    need_default: bool = True,
+    need_no_limiter: bool = False,
+    need_no_limiter_normalized: bool = False,
+    target_lengths: Optional[Sequence[int]] = None,
+    reference_lengths: Optional[Sequence[int]] = None,
+    devices: Optional[Sequence] = None,
+    *,
+    device=None,
+) -> List[MasterOutput]:
+    """Master pairs as independent graphs, one per pair, every one
+    enqueued before any result is read.  Each track runs at its true
+    length (``target_lengths`` / ``reference_lengths``, default: its
+    padded length).
+
+    ``devices`` (optional): torch devices the pairs go round-robin over,
+    pair i on ``devices[i % len(devices)]``; the smoothing operators are
+    staged once per device and the results stay there.  Without it every
+    pair runs on ``device`` (``cuda`` unless named).  Returns one
+    ``MasterOutput`` per pair, in order."""
+    if len(targets) != len(references):
+        raise ValueError("targets and references differ in count")
+    if (target_lengths is None) != (reference_lengths is None):
+        raise ValueError("pass both target_lengths and reference_lengths, or neither")
+    if target_lengths is None:
+        target_lengths = [t.shape[0] for t in targets]
+        reference_lengths = [r.shape[0] for r in references]
+    if devices is None:
+        devices = [resolve_device(device)]
+    else:
+        devices = [resolve_device(d) for d in devices]
+    operators = {d: operators_for_config(config, d) for d in set(devices)}
+
+    # stage every pair first: a pageable copy would wait for the graphs
+    staged = []
+    for i, (t, r, tl, rl) in enumerate(zip(targets, references, target_lengths, reference_lengths)):
+        on = devices[i % len(devices)]
+        (tl,) = check_lengths([tl], t.shape[0], config, "target")
+        (rl,) = check_lengths([rl], r.shape[0], config, "reference")
+        staged.append((
+            to_device(t, on), to_device(r, on),
+            RowInts.of([tl], on), RowInts.of([rl], on), operators[on],
+        ))
+    return [
+        master_graph(
+            t, r, config, ops,
+            need_default=need_default,
+            need_no_limiter=need_no_limiter,
+            need_no_limiter_normalized=need_no_limiter_normalized,
+            target_length=tl,
+            reference_length=rl,
+        )
+        for t, r, tl, rl, ops in staged
+    ]

@@ -1,22 +1,26 @@
 """The mastering core (PyTorch).
 
-Counterpart of the static path of ``matchering_tpu.stages`` (reference
+Counterpart of ``matchering_tpu.stages`` (reference
 ``matchering/stages.py:38-272`` and ``matchering/stage_helpers/``): level
 matching via piecewise loudest-piece RMS, frequency matching via averaged
 framed spectra and a LOWESS-smoothed linear-phase FIR, iterative RMS
 correction, and the three output variants (limited / no-limiter /
 no-limiter-normalized).
 
-``master_graph`` runs eagerly on the device of its inputs; piece division
-is host arithmetic on static lengths, and no statistic leaves the device
-until ``main`` reads the report.  The bucketed (dynamic-length) path of the
-JAX package is not ported yet.
+``master_graph`` runs eagerly on the device of its inputs, over one pair or
+a (B, n, 2) batch (the graph is batch-first; a single pair is one row).
+Piece division is host arithmetic on static lengths or, on the dynamic path
+(zero-padded tracks with their true lengths: the farm and
+``Config(length_bucketing=N)``), per-row integer arithmetic done alike on
+the host ints and on the staged device tensor.  No statistic leaves the
+device until ``main`` reads the report, and the dynamic path makes no host
+sync at all.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -24,37 +28,86 @@ from .config import Config
 from .limiter import limit
 from .log import Code, debug, debug_line, info
 from .ops import basics, convolve, fir, smoothing, spectrum
-from .utils import resolve_device, to_db, to_device
+from .state import operators_for_config
+from .utils import RowInts, make_odd, ms_to_samples, resolve_device, to_db, to_device
 
 
 class MasterOutput(NamedTuple):
-    """Rendered variants (None where not requested) plus a report of 0-dim
-    diagnostics for host-side debug logging."""
+    """Rendered variants (None where not requested) plus a report of
+    diagnostics for host-side debug logging: each a 0-dim tensor for one
+    pair, a (B,) tensor for a batch."""
 
     result: Optional[torch.Tensor]
     result_no_limiter: Optional[torch.Tensor]
     result_no_limiter_normalized: Optional[torch.Tensor]
     report: Dict[str, torch.Tensor]
 
+    def row(self, index) -> "MasterOutput":
+        """Row ``index`` (an int or a slice) of a batch's output."""
+        return MasterOutput(
+            *(None if x is None else x[index] for x in self[:3]),
+            report={key: value[index] for key, value in self.report.items()},
+        )
+
+
+_VARIANTS = ("result", "result_no_limiter", "result_no_limiter_normalized")
+
 
 class _Division(NamedTuple):
-    """Piece geometry of one track (reference ``match_levels.py:47-59``):
-    ``divisions = n // max_piece_size + 1``, ``piece_size = n // divisions``."""
+    """Piece geometry of the tracks of a batch (reference
+    ``match_levels.py:47-59``): ``divisions = n // max_piece_size + 1``,
+    ``piece_size = n // divisions``.  Static: host ints shared by every
+    row (the padded length is the analysis length).  Dynamic: one value
+    per row from its true length, as ``RowInts`` (host ints for strided
+    views, a device tensor for the graph), with ``div_max`` bounding the
+    division count on the host."""
 
-    divisions: int
-    piece_size: int
+    divisions: Union[int, RowInts]
+    piece_size: Union[int, RowInts]
+    div_max: Optional[int]  # None: static geometry
 
     @classmethod
     def static(cls, n: int, max_piece_size: int) -> "_Division":
         divisions = n // max_piece_size + 1
-        return cls(divisions, n // divisions)
+        return cls(divisions, n // divisions, None)
+
+    @classmethod
+    def dynamic(cls, n: int, lengths: RowInts, max_piece_size: int) -> "_Division":
+        """Each row's geometry from its length, by the same integer
+        arithmetic on the host ints and on the device tensor (no copy)."""
+        divisions_device = lengths.device // max_piece_size + 1
+        divisions = RowInts(
+            tuple(v // max_piece_size + 1 for v in lengths.host), divisions_device
+        )
+        piece_size = RowInts(
+            tuple(v // d for v, d in zip(lengths.host, divisions.host)),
+            lengths.device // divisions_device,
+        )
+        return cls(divisions, piece_size, n // max_piece_size + 1)
 
 
 def _analyze_levels(mid: torch.Tensor, division: _Division):
-    """Loudest-piece mask and match RMS of a mid channel (reference
+    """Loudest-piece mask and match RMS of (B, n) mid channels (reference
     ``analyze_levels``, ``match_levels.py:134-161``)."""
-    rmses = basics.piece_rms_flat(mid, division.piece_size, division.divisions)
-    return basics.loudest_piece_stats(rmses)
+    if division.div_max is None:
+        rmses = basics.piece_rms_flat(mid, division.piece_size, division.divisions)
+        return basics.loudest_piece_stats(rmses)
+    rmses, valid = basics.piece_rms_dynamic(
+        mid, division.piece_size.device, division.divisions.device, division.div_max
+    )
+    return basics.loudest_piece_stats_masked(rmses, valid, division.divisions.device)
+
+
+def _masked_spectrum_pair(mid, side, mask, division: _Division, config: Config):
+    """Both channels' masked average spectra, static or per-row geometry."""
+    if division.div_max is None:
+        return spectrum.masked_average_spectrum_flat_pair(
+            mid, side, mask, division.piece_size, division.divisions, config.fft_size
+        )
+    fpp_max = config.max_piece_size // config.fft_size + 1
+    return spectrum.masked_average_spectrum_dynamic_pair(
+        mid, side, mask, division.piece_size, division.div_max, config.fft_size, fpp_max
+    )
 
 
 def _fir_from_spectra(
@@ -63,9 +116,9 @@ def _fir_from_spectra(
     config: Config,
     operators: Tuple[torch.Tensor, torch.Tensor],
 ) -> torch.Tensor:
-    """Matching-EQ FIR from averaged spectra (reference ``get_fir``,
-    ``match_frequencies.py:78-99``): matching curve, log-grid smoothing,
-    linear-phase FIR synthesis."""
+    """Matching-EQ FIRs (B, fft_size) from averaged spectra (reference
+    ``get_fir``, ``match_frequencies.py:78-99``): matching curve, log-grid
+    smoothing, linear-phase FIR synthesis."""
     matching_fft = reference_fft / torch.clamp(target_fft, min=config.min_value)
     smoothed = smoothing.smooth_exponentially(matching_fft, operators)
     return fir.fir_from_magnitude(smoothed, config.fft_size)
@@ -79,15 +132,28 @@ def master_graph(
     need_default: bool = True,
     need_no_limiter: bool = False,
     need_no_limiter_normalized: bool = False,
+    target_length: Optional[RowInts] = None,
+    reference_length: Optional[RowInts] = None,
 ) -> MasterOutput:
     """The full mastering computation on the inputs' device.
 
-    target/reference: (n, 2) stereo at ``config.internal_sample_rate``,
-    float or raw int16/int32 PCM (converted on the device).
-    ``operators``: the folded smoothing matrices on that device, in the
-    working dtype (see :func:`master`)."""
-    if config.length_bucketing:
-        raise NotImplementedError("length_bucketing is not ported yet")
+    target/reference: (n, 2) stereo, or (B, n, 2) and (B, m, 2) batches,
+    at ``config.internal_sample_rate``, float or raw int16/int32 PCM
+    (converted on the device).  ``operators``: the folded smoothing
+    matrices on that device, in the working dtype (see :func:`master`).
+
+    ``target_length`` / ``reference_length`` (``RowInts``, one per row,
+    both or neither): the true lengths of zero-padded tracks.  Every
+    length-dependent quantity (piece division, loudest-piece statistics,
+    averaged spectra, the limiter's end) then follows each track's true
+    length, so row r reproduces the master of the unpadded pair r, and
+    output samples past ``target_length`` are 0.  Everything here is
+    already on the device: the graph makes no host sync on this path."""
+    if (target_length is None) != (reference_length is None):
+        raise ValueError("pass both target_length and reference_length, or neither")
+    single = target.ndim == 2  # one pair is one row
+    if single:
+        target, reference = target[None], reference[None]
     dtype = config.torch_dtype
     target = basics.to_working_float(target, dtype)
     reference = basics.to_working_float(reference, dtype)
@@ -99,8 +165,15 @@ def master_graph(
     )
     report["final_amplitude_coefficient"] = final_amplitude_coefficient
 
-    t_division = _Division.static(target.shape[0], config.max_piece_size)
-    r_division = _Division.static(reference.shape[0], config.max_piece_size)
+    n = target.shape[1]
+    if target_length is None:
+        t_division = _Division.static(n, config.max_piece_size)
+        r_division = _Division.static(reference.shape[1], config.max_piece_size)
+    else:
+        t_division = _Division.dynamic(n, target_length, config.max_piece_size)
+        r_division = _Division.dynamic(
+            reference.shape[1], reference_length, config.max_piece_size
+        )
 
     target_mid, target_side = basics.lr_to_ms(target)
     reference_mid, reference_side = basics.lr_to_ms(reference)
@@ -116,41 +189,44 @@ def master_graph(
     # --- Stage 2: match frequencies (stages.py:107-135) ---
     # spectra come from the unamplified target channels and are scaled by
     # the RMS coefficient (|FFT| is positively homogeneous)
-    t_mid_fft, t_side_fft = spectrum.masked_average_spectrum_flat_pair(
-        target_mid, target_side, t_mask,
-        t_division.piece_size, t_division.divisions, config.fft_size,
+    t_mid_fft, t_side_fft = _masked_spectrum_pair(
+        target_mid, target_side, t_mask, t_division, config
     )
-    r_mid_fft, r_side_fft = spectrum.masked_average_spectrum_flat_pair(
-        reference_mid, reference_side, r_mask,
-        r_division.piece_size, r_division.divisions, config.fft_size,
+    r_mid_fft, r_side_fft = _masked_spectrum_pair(
+        reference_mid, reference_side, r_mask, r_division, config
     )
-    mid_fir = _fir_from_spectra(t_mid_fft * rms_coefficient, r_mid_fft, config, operators)
-    side_fir = _fir_from_spectra(t_side_fft * rms_coefficient, r_side_fft, config, operators)
+    coefficient = rms_coefficient[:, None]
+    mid_fir = _fir_from_spectra(t_mid_fft * coefficient, r_mid_fft, config, operators)
+    side_fir = _fir_from_spectra(t_side_fft * coefficient, r_side_fft, config, operators)
 
+    # the 2B mid and side rows go through one convolution call
+    rows = target.shape[0]
     convolved = convolve.fft_convolve_same_batch(
-        torch.stack([target_mid * rms_coefficient, target_side * rms_coefficient]),
-        torch.stack([mid_fir, side_fir]),
-    )
-    result_mid = convolved[0]
-    result = basics.ms_to_lr(result_mid, convolved[1])
+        torch.stack([target_mid * coefficient, target_side * coefficient], dim=1).reshape(2 * rows, n),
+        torch.stack([mid_fir, side_fir], dim=1).reshape(2 * rows, -1),
+    ).reshape(rows, 2, n)
+    if target_length is not None:
+        # the FIR tail bleeds past the true end of a padded track; the
+        # reference's result stops there, so zero the overhang before any
+        # peak-sensitive stage (normalize, limiter) sees it
+        convolved = convolved * target_length.mask(n, convolved.dtype)[:, None, :]
+    result_mid = convolved[:, 0]
+    result = basics.ms_to_lr(result_mid, convolved[:, 1])
 
     # --- Stage 3: RMS correction (stages.py:138-170) ---
     # clip(c*x, 1) = c * clip(x, 1/c) and piece RMS is homogeneous, so each
     # step reads the unscaled mid channel with a scaled threshold and one
     # final scale touches the stereo track
-    c_total = torch.ones((), dtype=dtype, device=result.device)
+    c_total = torch.ones(rows, dtype=dtype, device=result.device)
     for step in range(config.rms_correction_steps):
         clipped = basics.clip(result_mid, 1.0 / c_total)
-        clipped_rmses = basics.piece_rms_flat(
-            clipped, t_division.piece_size, t_division.divisions
-        )
-        _, clipped_match_rms = basics.loudest_piece_stats(clipped_rmses)
+        _, clipped_match_rms = _analyze_levels(clipped, t_division)
         coefficient = r_match_rms / torch.clamp(
             c_total * clipped_match_rms, min=config.min_value
         )
         report[f"rms_correction_{step + 1}"] = coefficient
         c_total = c_total * coefficient
-    result = result * c_total
+    result = result * c_total[:, None, None]
 
     # --- Stage 4: finalize (stages.py:173-207) ---
     result_no_limiter_normalized = None
@@ -162,14 +238,39 @@ def master_graph(
 
     result_default = None
     if need_default:
-        result_default = limit(result, config) * final_amplitude_coefficient
+        result_default = (
+            limit(result, config, length=target_length)
+            * final_amplitude_coefficient[:, None, None]
+        )
 
-    return MasterOutput(
+    out = MasterOutput(
         result=result_default,
         result_no_limiter=result if need_no_limiter else None,
         result_no_limiter_normalized=result_no_limiter_normalized,
         report=report,
     )
+    return out.row(0) if single else out
+
+
+def minimum_length(config: Config) -> int:
+    """The shortest true length the dynamic path takes: the limiter's
+    attack window (K1's reflection at the row's end) and the 7 samples
+    of filtfilt's tail extension."""
+    attack = ms_to_samples(config.limiter.attack, config.internal_sample_rate)
+    return max(2 * make_odd(attack) - 1, 7)
+
+
+def check_lengths(lengths, n: int, config: Config, role: str) -> Tuple[int, ...]:
+    """Host ints -> a tuple, after checking each against the padded length
+    ``n`` and :func:`minimum_length`; raises ValueError."""
+    lengths = tuple(int(v) for v in lengths)
+    shortest = minimum_length(config)
+    for length in lengths:
+        if not shortest <= length <= n:
+            raise ValueError(
+                f"{role} length {length} is outside [{shortest}, {n}] (the padded length)"
+            )
+    return lengths
 
 
 def master(
@@ -180,28 +281,36 @@ def master(
     need_no_limiter: bool = False,
     need_no_limiter_normalized: bool = False,
     device=None,
+    target_length: Optional[int] = None,
+    reference_length: Optional[int] = None,
 ) -> MasterOutput:
-    """:func:`master_graph` on ``device`` (``cuda`` unless named; no CPU
-    fallback), with the smoothing operators built on the host and moved
-    there.  Inputs may be numpy arrays or tensors."""
+    """:func:`master_graph` of one pair on ``device`` (``cuda`` unless
+    named; no CPU fallback), with the smoothing operators built on the host
+    and moved there.  Inputs may be numpy arrays or tensors.
+
+    ``target_length`` / ``reference_length`` (host ints, both or neither):
+    the true lengths of zero-padded tracks, checked here against the padded
+    lengths and :func:`minimum_length` before anything is staged."""
     device = resolve_device(device)
-    # the smoothing operators are float32 matmuls on the card: keep them
-    # at full float32 precision (TF32 keeps about three decimal digits);
-    # this is PyTorch's default, set here so the run does not depend on it
-    torch.backends.cuda.matmul.allow_tf32 = False
-    to_log, to_lin = smoothing.host_operators_for_config(config)
-    operators = (
-        torch.as_tensor(to_log, dtype=config.torch_dtype, device=device),
-        torch.as_tensor(to_lin, dtype=config.torch_dtype, device=device),
-    )
+    if (target_length is None) != (reference_length is None):
+        raise ValueError("pass both target_length and reference_length, or neither")
+    if target_length is not None:
+        (target_length,) = check_lengths([target_length], target.shape[0], config, "target")
+        (reference_length,) = check_lengths(
+            [reference_length], reference.shape[0], config, "reference"
+        )
+        target_length = RowInts.of([target_length], device)
+        reference_length = RowInts.of([reference_length], device)
     return master_graph(
         to_device(target, device),
         to_device(reference, device),
         config,
-        operators,
+        operators_for_config(config, device),
         need_default=need_default,
         need_no_limiter=need_no_limiter,
         need_no_limiter_normalized=need_no_limiter_normalized,
+        target_length=target_length,
+        reference_length=reference_length,
     )
 
 
@@ -216,21 +325,48 @@ def main(
 ):
     """Reference-compatible stage runner (``matchering/stages.py:210-272``):
     returns the (result, result_no_limiter, result_no_limiter_normalized)
-    triple of tensors, emitting the stage codes in the reference's order."""
+    triple of tensors, emitting the stage codes in the reference's order.
+
+    With ``config.length_bucketing`` both tracks are zero-padded on the
+    device up to a multiple of it, mastered at their true lengths (the
+    dynamic path), and the results cut back to the target's length
+    (``matchering_tpu/stages.py:446-480``)."""
     debug_line()
     info(Code.INFO_MATCHING_LEVELS)
     info(Code.INFO_MATCHING_FREQS)
     info(Code.INFO_CORRECTING_LEVELS)
     start = time.perf_counter()
-    out = master(
-        target,
-        reference,
-        config,
-        need_default=need_default,
-        need_no_limiter=need_no_limiter,
-        need_no_limiter_normalized=need_no_limiter_normalized,
-        device=device,
-    )
+    device = resolve_device(device)
+    bucket = config.length_bucketing
+    if bucket:
+        from .parallel.batch import bucket_pad
+
+        t_batch, (t_len,) = bucket_pad([target], multiple=bucket, device=device)
+        r_batch, (r_len,) = bucket_pad([reference], multiple=bucket, device=device)
+        out = master(
+            t_batch[0],
+            r_batch[0],
+            config,
+            need_default=need_default,
+            need_no_limiter=need_no_limiter,
+            need_no_limiter_normalized=need_no_limiter_normalized,
+            device=device,
+            target_length=t_len,
+            reference_length=r_len,
+        )
+        out = out._replace(
+            **{key: getattr(out, key)[:t_len] for key in _VARIANTS if getattr(out, key) is not None}
+        )
+    else:
+        out = master(
+            target,
+            reference,
+            config,
+            need_default=need_default,
+            need_no_limiter=need_no_limiter,
+            need_no_limiter_normalized=need_no_limiter_normalized,
+            device=device,
+        )
     # reading the report waits for the device to finish the chain
     report_host = {key: float(value) for key, value in out.report.items()}
     debug(f"Mastering graph (all four stages) took {time.perf_counter() - start:.3f} s")

@@ -8,6 +8,7 @@ import os
 import random
 import string
 from datetime import timedelta
+from typing import NamedTuple, Tuple
 
 
 def get_temp_folder(results: list) -> str:
@@ -53,6 +54,37 @@ def resolve_device(device=None):
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+class RowInts(NamedTuple):
+    """One int per row of a batch, carried both ways: ``host`` as Python
+    ints, for the kernels' launch checks and host geometry such as strided
+    views, and ``device``, the same values as a (B,) int64 tensor for the
+    graph.  Nothing reads the tensor back.  The rows' true lengths in a
+    zero-padded batch travel as one."""
+
+    host: Tuple[int, ...]
+    device: "torch.Tensor"
+
+    @classmethod
+    def of(cls, values, device) -> "RowInts":
+        """Stage host ints on ``device`` (one host-to-device copy)."""
+        import torch
+
+        host = tuple(int(v) for v in values)
+        return cls(host, torch.tensor(host, dtype=torch.int64, device=device))
+
+    def plus(self, offset: int) -> "RowInts":
+        """Every value moved by ``offset``, on both sides."""
+        return RowInts(tuple(v + offset for v in self.host), self.device + offset)
+
+    def mask(self, n: int, dtype=None):
+        """(B, n) 0/1 mask of the samples below each row's length, as
+        ``dtype`` (bool if None)."""
+        import torch
+
+        keep = torch.arange(n, device=self.device.device) < self.device[:, None]
+        return keep if dtype is None else keep.to(dtype)
 
 
 def to_device(array, device):

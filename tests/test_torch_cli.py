@@ -68,8 +68,12 @@ def test_main_no_limiter_normalized(files):
     assert abs(np.abs(audio).max() - mt.Config().threshold) < 1e-6
 
 
-@pytest.mark.parametrize("flag", [["--time_sharded"], ["--length_bucketing", "65536"]])
+@pytest.mark.parametrize(
+    "flag", [["--time_sharded"], ["--length_bucketing", "65536", "--time_sharded"]]
+)
 def test_unported_options_are_parser_errors(flag, capsys):
+    """``--time_sharded`` is not ported, alone or beside the (ported)
+    ``--length_bucketing``."""
     with pytest.raises(SystemExit) as stop:
         main(["t.wav", "r.wav", "o.wav", *flag], device="cpu")
     assert stop.value.code == 2

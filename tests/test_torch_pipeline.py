@@ -177,7 +177,8 @@ def test_non_wav_input_raises_coded_error(tmp_path):
 
 def test_import_loads_no_jax():
     code = (
-        "import sys, matchering_tpu_torch; "
+        "import sys, matchering_tpu_torch, matchering_tpu_torch.farm, "
+        "matchering_tpu_torch.parallel.batch; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'matchering_tpu')]; "
         "assert not bad, bad"
     )

@@ -228,7 +228,7 @@ def main() -> None:
         def call():
             scratch = torch.zeros(2 * -(-n // tile) + 1, dtype=torch.int64, device=device)
             status = fn(
-                x.data_ptr(), y.data_ptr(), zi.data_ptr(), 1, n, filt.b0, filt.b1, filt.a1, 0,
+                x.data_ptr(), y.data_ptr(), zi.data_ptr(), None, 1, n, filt.b0, filt.b1, filt.a1, 0,
                 ctypes.addressof(powers), scratch.data_ptr(), stream,
             )
             build.check(status, path)
