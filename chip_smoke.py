@@ -31,10 +31,11 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    bounds;
 4. writes a 180 s PCM_16 WAV pair made from a seed and runs
    ``process()`` on it on the card twice (cold, warm), counting kernel
-   launches per run, and checks the written file; prints the warm run's
-   timeline of log events and a profile of one ``master`` call (device
-   time by op, and the device's busy share of its wall time), in which
-   each K2 call must be a single kernel;
+   launches per run (1 K1, 4 K2 and 0 K3 with ``Config()``), and checks
+   the written file; prints the warm run's timeline of log events and a
+   profile of one ``master`` call (device time by op, and the device's
+   busy share of its wall time), in which each K2 call must be a single
+   kernel;
 5. compares ``master`` on the card (float32) with the port's own
    ``master`` on the CPU at float64 on a 30 s pair: at least 95 dB SNR;
 6. the user path: writes a 180 s PCM_16 target at 44.1 kHz and a 180 s
@@ -51,7 +52,7 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    one for a raw FLOAT variant), runs ``process_batch`` on the card with
    ``dispatch="pipelined"`` and then ``"vmapped"``, each twice (cold,
    warm), with the kernel launches counted per run (8 K1 and 32 K2
-   pipelined, 1 and 4 vmapped), its wall time, pairs and audio seconds per
+   pipelined, 1 and 4 vmapped, no K3), its wall time, pairs and audio seconds per
    wall second, peak device memory and the warm runs' event timelines;
    holds every job's PCM_16 file to what ``process()`` on the card writes
    for the pair (one LSB); runs the dynamic ``master_graph`` on the staged
@@ -59,9 +60,25 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    times it against one graph per pair on the same staged inputs, and
    holds ``master_batch`` on the card at float32 against the CPU at
    float64 on three rows of 20-30 s (>= 95 dB per row);
-8. prints one JSON line of per-kernel numbers (with each kernel's batched
-   numbers from phases 3 and 7), then, last, the device line
-   ``{"ok": true, "device": {...}}``.
+8. the configs path, every ``Config`` the JAX package honours: K3 (the
+   second-order-section scan) against its plain twin at both Butterworth
+   cutoffs of the limiter (hold 7 Hz, release 800/3000 Hz), in float32 and
+   float64, at awkward shapes, at n = 7,938,000 (three repeats) and over
+   8 rows of 8,126,464, to one float32 ulp at 1.0 and 1e-10 relative in
+   float64, and in float64 against ``scipy.signal.sosfilt`` run in long
+   double on the host (1e-9); K3 timed at full width (a call, the kernel
+   alone, the twin) beside its byte bound; ``process()`` on a 180 s pair
+   with hold/release orders 2/2 and ``lowess_it=1``, cold and warm, with
+   the kernel launches counted (1 K1, 2 K2, 2 K3), and the smoothing
+   state's staging timed from the host operators and from its cache; the
+   card's float32 ``master`` against the CPU's float64 (>= 95 dB) for
+   that config and for ``lowess_exact=True`` with orders 3/4 on 30 s
+   pairs; and
+   ``master_batch`` of that config on three rows (>= 95 dB per row), its
+   dynamic graph run under ``torch.cuda.set_sync_debug_mode("error")``;
+9. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+   kernel's batched numbers from phases 3, 7 and 8), then, last, the
+   device line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code and no device line.
 It imports nothing of JAX or ``matchering_tpu``.
@@ -83,6 +100,10 @@ SNR_SECONDS = 30
 SNR_GATE_DB = 95.0  # the JAX package's float32 gate (tests/test_dtype_gates.py)
 SCAN_TOL = 2.0**-23  # one float32 ulp at 1.0: the two differ only in the final rounding
 SCAN_REL_TOL_F64 = 1e-12  # float64: the kernel and the twin combine their spans in other orders
+# K3 in float64: both combine with compensated products, in other orders and
+# through other powers; near-double poles amplify what one rounding leaves
+SOS_REL_TOL_F64 = 1e-10
+SOSFILT_TOL = 1e-9  # K3 in float64 against sosfilt in long double, inputs in [0, 1)
 SEED = 20260
 USER_RATE = 48000  # the user path's reference rate (video and DAW exports)
 RESAMPLE_TOL = 1e-12  # float64 on both: the two sum the product in other orders
@@ -92,6 +113,8 @@ BUCKET_N = 31 * BUCKET  # 8,126,464 samples: the bucket of a 180 s track
 BATCH_ROWS = 8
 FARM_JOBS = 8
 BATCH_SNR_SECONDS = (20, 30)  # the card-vs-CPU master_batch rows
+K3_SHAPES = [1, 2, 255, 256, 257, 3 * 256 + 5, 4095, 4096, 4097, 3 * 4096 + 5, 200_000]
+CUTOFFS = {"hold": 7.0, "release": 800.0 / 3000.0}  # LimiterConfig()'s Butterworth cutoffs
 # H100 peaks (NVIDIA data sheet, SXM part; the PCIe part is slower)
 HBM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
 F32_FLOPS = 67e12  # float32 outside the tensor cores
@@ -391,7 +414,7 @@ def farm_path(mt, torch, device, config, recorder):
     fails on any mismatch."""
     from matchering_tpu_torch import stages, state
     from matchering_tpu_torch.io import wav
-    from matchering_tpu_torch.kernels import envelope, scan
+    from matchering_tpu_torch.kernels import envelope, scan, sos
     from matchering_tpu_torch.parallel import batch
     from matchering_tpu_torch.utils import RowInts
 
@@ -426,13 +449,14 @@ def farm_path(mt, torch, device, config, recorder):
             return out
 
         runs, timelines = [], {}
-        expected = {"pipelined": (FARM_JOBS, 4 * FARM_JOBS), "vmapped": (1, 4)}
+        expected = {"pipelined": (FARM_JOBS, 4 * FARM_JOBS, 0), "vmapped": (1, 4, 0)}
         for dispatch in ("pipelined", "vmapped"):
             for label in ("cold", "warm"):
                 events = []
                 recorder(events)
                 envelope.LAUNCHES = 0
                 scan.LAUNCHES = 0
+                sos.LAUNCHES = 0
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 start = time.perf_counter()
@@ -442,13 +466,14 @@ def farm_path(mt, torch, device, config, recorder):
                 finally:
                     mt.log()
                 wall = time.perf_counter() - start
-                launches = (envelope.LAUNCHES, scan.LAUNCHES)
+                launches = (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
                 require(launches == expected[dispatch],
-                        f"{dispatch} {label} process_batch launched K1 and K2 {launches} times, "
+                        f"{dispatch} {label} process_batch launched K1, K2 and K3 {launches} times, "
                         f"not {expected[dispatch]}")
                 runs.append({
                     "dispatch": dispatch, "run": label, "wall_s": wall, "pairs_per_s": FARM_JOBS / wall,
                     "audio_s_per_wall_s": audio_seconds / wall, "k1": launches[0], "k2": launches[1],
+                    "k3": launches[2],
                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                 })
                 print(json.dumps({"farm_run": runs[-1]}), flush=True)
@@ -543,6 +568,263 @@ def farm_path(mt, torch, device, config, recorder):
     return numbers
 
 
+def expected_launches(config):
+    """(K1, K2, K3) launches of one ``limit()`` under ``config``: one K1,
+    the attack filtfilt's two K2, and per Butterworth low-pass of order h
+    one K2 at order 1, else one K3 per scipy section, ``ceil(h / 2)``."""
+    k2, k3 = 2, 0
+    for order in (config.limiter.hold_filter_order, config.limiter.release_filter_order):
+        if order == 1:
+            k2 += 1
+        else:
+            k3 += -(-order // 2)
+    return 1, k2, k3
+
+
+def sosfilt_ld(section, x):
+    """``scipy.signal.sosfilt`` of one section in long double on the host,
+    rounded to float64: the reference K3 is held to."""
+    from scipy import signal
+
+    row = np.asarray([[section.b0, section.b1, section.b2, 1.0, section.a1, section.a2]], np.longdouble)
+    return signal.sosfilt(row, np.asarray(x, np.longdouble), axis=-1).astype(np.float64)
+
+
+def configs_path(mt, torch, device, cuda_ms, kernel_ms, run_process, bandwidth):
+    """Phase 8: K3 and the non-default configs (see the module's
+    docstring).  Returns K3's line of the kernels' numbers and the phase's
+    numbers; fails on any mismatch."""
+    from matchering_tpu_torch import stages, state
+    from matchering_tpu_torch.io import wav
+    from matchering_tpu_torch.kernels import sos
+    from matchering_tpu_torch.ops import iir, smoothing
+    from matchering_tpu_torch.parallel import batch
+    from matchering_tpu_torch.utils import RowInts
+    from scipy import signal
+
+    rng = np.random.RandomState(SEED + 7)
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    sections = {name: iir.butter_sos(2, cutoff, float(SR))[0] for name, cutoff in CUTOFFS.items()}
+    f32, f64 = torch.float32, torch.float64
+    tolerance = {f32: SCAN_TOL, f64: SOS_REL_TOL_F64}
+
+    def check(x, section, label, want=None):
+        """K3 against its twin (``want``, computed unless given): the max
+        error, absolute in float32 (outputs below 2, so one ulp is at most
+        2^-23), relative in float64, held to its tolerance."""
+        got = sos.sos_filter(x, *section)
+        if want is None:
+            want = sos.sos_filter_plain(x, *section)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), "K3 gave non-finite values")
+        diff = (got.double() - want.double()).abs()
+        if x.dtype == f32:
+            require(float(want.abs().max()) < 2.0, "K3's float32 check needs outputs below 2")
+            err = float(diff.max())
+        else:
+            err = float((diff / want.double().abs().clamp_min(1e-300)).max())
+        require(err <= tolerance[x.dtype], f"K3 disagrees with its twin ({label}, {x.dtype}): "
+                                           f"error {err} > {tolerance[x.dtype]}")
+        worst[x.dtype] = max(worst[x.dtype], err)
+        return err, got, want
+
+    worst = {f32: 0.0, f64: 0.0}
+    checked = 0
+    for name, section in sections.items():
+        for dtype in (f32, f64):
+            for n in K3_SHAPES:
+                for rows in (1, 3):
+                    x = torch.from_numpy(rng.rand(rows, n)).to(device, dtype)
+                    check(x[0] if rows == 1 else x, section, f"{name}, n={n}, rows={rows}")
+                    checked += 1
+
+    # full width: one track (three repeats: the look-back's carries may round
+    # differently each run) and 8 rows; float64 also against sosfilt on the host
+    track = torch.rand(FULL_N, generator=gen, device=device, dtype=f64)
+    rows8 = torch.rand((BATCH_ROWS, BUCKET_N), generator=gen, device=device, dtype=f64)
+    repeats, host_err = {f32: [], f64: []}, 0.0
+    for name, section in sections.items():
+        for dtype in (f32, f64):
+            x, want = track.to(dtype), None
+            for _ in range(3):
+                err, got, want = check(x, section, f"{name}, n={FULL_N}, repeated", want)
+                repeats[dtype].append(err)
+            _, got8, _ = check(rows8.to(dtype), section, f"{name}, {BATCH_ROWS} rows of {BUCKET_N}")
+            if dtype == f64:
+                for inputs, outputs in ((x, got), (rows8, got8)):
+                    diff = outputs.cpu().numpy() - sosfilt_ld(section, inputs.cpu().numpy())
+                    host_err = max(host_err, float(np.max(np.abs(diff))))
+            del x, want, got, got8
+    require(host_err <= SOSFILT_TOL, f"K3 float64 is {host_err} off sosfilt (long double) > {SOSFILT_TOL}")
+    release, host_track = sections["release"], track.cpu().numpy()
+    sosfilt_f64_err = float(np.max(np.abs(
+        signal.sosfilt([[*release[:3], 1.0, *release[3:]]], host_track) - sosfilt_ld(release, host_track)
+    )))
+    del host_track
+    print(f"K3 checked at n={K3_SHAPES}, rows 1 and 3, n={FULL_N} (3 repeats) and {BATCH_ROWS} rows "
+          f"of {BUCKET_N}, both cutoffs: {checked} awkward cases, worst float32 abs err {worst[f32]}, "
+          f"worst float64 rel err {worst[f64]}, float64 vs sosfilt (long double) {host_err} "
+          f"(sosfilt in float64: {sosfilt_f64_err})", flush=True)
+
+    # timed at full width in float32, beside the byte bound
+    x = track.to(f32)
+    x8 = rows8.to(f32)
+    del track, rows8
+    cases, batched_cases = [], []
+    for name, section in sections.items():
+        cases.append({
+            "cutoff": name, "section": list(section),
+            "ms": cuda_ms(lambda: sos.sos_filter(x, *section), 20),
+            "kernel_ms": kernel_ms(lambda: sos.sos_filter(x, *section), "sos_scan_kernel"),
+            "plain_ms": cuda_ms(lambda: sos.sos_filter_plain(x, *section), 2),
+        })
+        batched_cases.append({
+            "cutoff": name,
+            "ms": cuda_ms(lambda: sos.sos_filter(x8, *section), 10),
+            "kernel_ms": kernel_ms(lambda: sos.sos_filter(x8, *section), "sos_scan_kernel", reps=10),
+            "plain_ms": cuda_ms(lambda: sos.sos_filter_plain(x8, *section), 1),
+        })
+        print(f"K3 timed: {name}: {cases[-1]['ms']:.4f} ms a call, {cases[-1]['kernel_ms']:.4f} ms "
+              f"of kernel; {BATCH_ROWS} rows {batched_cases[-1]['kernel_ms']:.4f} ms of kernel", flush=True)
+    del x, x8
+
+    def mean(rows, key):
+        return sum(r[key] for r in rows) / len(rows)
+
+    def bound(samples):
+        moved, ops = samples * 8, samples * 9  # float32 in and out; y, z1, z2 in float64
+        return {"bytes": moved, "bound_ms": 1e3 * max(moved / bandwidth, ops / F64_FLOPS),
+                "bound_by": "bytes" if moved / bandwidth >= ops / F64_FLOPS else "operations"}
+
+    k3 = {
+        "name": "sos_scan", "route": "cuda", "source": "matchering_tpu_torch/csrc/sos_scan.cu",
+        "replaces": "matchering_tpu/ops/iir.py:992",
+        "max_abs_err": worst[f32], "tolerance": SCAN_TOL,
+        "max_rel_err_f64": worst[f64], "tolerance_rel_f64": SOS_REL_TOL_F64,
+        "max_abs_err_vs_sosfilt_long_double": host_err, "tolerance_vs_sosfilt": SOSFILT_TOL,
+        "sosfilt_f64_vs_long_double": sosfilt_f64_err,
+        "ms": mean(cases, "ms"), "kernel_ms": mean(cases, "kernel_ms"), "plain_ms": mean(cases, "plain_ms"),
+        **bound(FULL_N), "library_ms": None, "n": FULL_N, "dtype": "float32",
+        "shapes": K3_SHAPES, "checked_cases": checked,
+        "repeat_abs_errs_f32": repeats[f32], "repeat_rel_errs_f64": repeats[f64], "cases": cases,
+        "batched": {"rows": BATCH_ROWS, "n": BUCKET_N, "dtype": "float32",
+                    "ms": mean(batched_cases, "ms"), "kernel_ms": mean(batched_cases, "kernel_ms"),
+                    "plain_ms": mean(batched_cases, "plain_ms"), **bound(BATCH_ROWS * BUCKET_N),
+                    "library_ms": None, "cases": batched_cases},
+    }
+
+    # process() on a 180 s pair with orders 2/2 and lowess_it=1
+    config = mt.Config(lowess_it=1, limiter=mt.LimiterConfig(hold_filter_order=2, release_filter_order=2))
+    expected = expected_launches(config)
+    numbers = {"config": {"lowess_it": 1, "hold_filter_order": 2, "release_filter_order": 2},
+               "expected_launches": expected}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_configs_") as tmp:
+        paths = [os.path.join(tmp, name) for name in ("t.wav", "r.wav", "master.wav")]
+        target, reference = make_pair(FULL_SECONDS, SR, SEED + 3)
+        wav.write(paths[0], target, SR, "PCM_16")
+        wav.write(paths[1], reference, SR, "PCM_16")
+        del target, reference
+        runs, events = [], []
+        for label in ("cold", "warm"):
+            timeline = run_process(label, runs, events, paths[0], paths[1], [mt.pcm16(paths[2])], config,
+                                   expected=expected)
+        out, rate = wav.read(paths[2])
+        require(rate == SR and out.shape == (FULL_N, 2), f"configs output is {out.shape} at {rate} Hz")
+        require(bool(np.all(np.isfinite(out))), "the configs output holds non-finite samples")
+        peak = float(np.max(np.abs(out)))
+        require(peak <= config.threshold, f"configs output peak {peak} exceeds {config.threshold}")
+        # where master()'s device time goes with this config, on the staged int16 pair
+        target_pcm, _ = mt.load(paths[0], "target", raw_int=True)
+        reference_pcm, _ = mt.load(paths[1], "reference", raw_int=True)
+        mt.master(target_pcm, reference_pcm, config, device=device)
+
+        def profiled_master():
+            sos.LAUNCHES = 0
+            mt.master(target_pcm, reference_pcm, config, device=device)
+
+        master_ms, ops = profile_device(torch, profiled_master)
+        sos_kernels = sum(o["calls"] for o in ops if "sos_scan_kernel" in o["op"])
+        require(sos_kernels == sos.LAUNCHES == expected[2],
+                f"master() made {sos.LAUNCHES} K3 calls but the profile shows {sos_kernels} sos_scan kernels")
+        device_ms = sum(o["device_ms"] for o in ops)
+        numbers["master_profiled"] = {"wall_ms": master_ms, "device_ms": device_ms,
+                                      "device_busy_share": device_ms / master_ms, "k3_kernels": sos_kernels,
+                                      "top_ops": top(ops, 15, 60)}
+        # the smoothing state's staging on its own: built from the host
+        # operators (float32 conversion and copy to the card), and as each
+        # master() call now takes it, from the per-device cache
+        host_ops = smoothing.host_operators_for_config(config)
+        staging = {}
+        for label, stage in (
+            ("uncached", lambda: state.operators_from_numpy(*host_ops, device, config.torch_dtype, config)),
+            ("cached", lambda: state.operators_for_config(config, device)),
+        ):
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                stage()
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - start))
+            staging[f"{label}_ms"] = walls
+        staging["operator_bytes"] = sum(a.size for a in host_ops) * config.torch_dtype.itemsize
+        numbers["smoothing_staging"] = staging
+        print(f"smoothing state staged in {staging['uncached_ms']} ms uncached, {staging['cached_ms']} ms "
+              f"cached ({staging['operator_bytes']} bytes of operators)", flush=True)
+        del host_ops
+        del target_pcm, reference_pcm, out
+    numbers.update(process=runs, realtime_factor_warm=FULL_SECONDS / runs[-1]["wall_s"],
+                   output_peak=peak, warm_timeline=timeline)
+    k3["launches"] = runs[-1]["k3"]
+
+    # the card's float32 master against the CPU's float64, two configs
+    snrs = {}
+    others = {"orders-2-2+lowess_it=1": dict(lowess_it=1, limiter=config.limiter),
+              "orders-3-4+lowess_exact": dict(lowess_exact=True, limiter=mt.LimiterConfig(
+                  hold_filter_order=3, release_filter_order=4))}
+    for i, (name, kwargs) in enumerate(others.items()):
+        target, reference = make_pair(SNR_SECONDS, SR, SEED + 40 + i)
+        card_out = mt.master(target, reference, mt.Config(**kwargs), device=device).result.cpu().numpy()
+        cpu_out = mt.master(target, reference, mt.Config(dtype="float64", **kwargs), device="cpu").result.numpy()
+        snrs[name] = snr_db(cpu_out, card_out)
+        require(snrs[name] >= SNR_GATE_DB, f"{name}: card float32 master at {snrs[name]} dB < {SNR_GATE_DB} dB")
+    numbers["snr_db_f32_card_vs_f64_cpu"] = snrs
+
+    # master_batch on three rows of the config; its dynamic graph without a host sync
+    lo, hi = BATCH_SNR_SECONDS
+    seconds = rng.uniform(lo, hi, (2, 3))
+    targets = [make_pair(v, SR, SEED + 70 + i)[0] for i, v in enumerate(seconds[0])]
+    references = [make_pair(v, SR, SEED + 80 + i)[1] for i, v in enumerate(seconds[1])]
+    t_batch, t_lens = batch.bucket_pad(targets, BUCKET, device="cpu")
+    r_batch, r_lens = batch.bucket_pad(references, BUCKET, device="cpu")
+    lengths = dict(target_lengths=t_lens, reference_lengths=r_lens)
+    card = batch.master_batch(t_batch, r_batch, config, **lengths, device=device).result.cpu()
+    cpu = batch.master_batch(t_batch, r_batch, mt.Config(dtype="float64", lowess_it=1, limiter=config.limiter),
+                             **lengths, device="cpu").result
+    staged_t, staged_r = t_batch.to(device), r_batch.to(device)
+    operators = state.operators_for_config(config, device)
+    t_rows, r_rows = RowInts.of(t_lens, device), RowInts.of(r_lens, device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph = stages.master_graph(staged_t, staged_r, config, operators,
+                                    target_length=t_rows, reference_length=r_rows).result
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    graph = graph.cpu()
+    batch_snrs = []
+    for i, length in enumerate(t_lens):
+        for name, rows in (("master_batch", card), ("sync-free graph", graph)):
+            require(not bool(rows[i, length:].any()), f"{name} row {i} is not 0 past its length")
+            measured = snr_db(cpu[i, :length].numpy(), rows[i, :length].numpy())
+            require(measured >= SNR_GATE_DB, f"{name} row {i}: {measured} dB < {SNR_GATE_DB} dB")
+            batch_snrs.append(measured)
+    numbers["master_batch_snr_db_f32_card_vs_f64_cpu"] = batch_snrs[0::2]
+    numbers["sync_free_graph_snr_db"] = batch_snrs[1::2]
+    numbers["master_batch_seconds"] = seconds.tolist()
+    return k3, numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -554,7 +836,7 @@ def main() -> None:
     try:
         import matchering_tpu_torch as mt
         from matchering_tpu_torch.io import wav
-        from matchering_tpu_torch.kernels import build, envelope, scan
+        from matchering_tpu_torch.kernels import build, envelope, scan, sos
         from matchering_tpu_torch.ops import iir
         from matchering_tpu_torch.utils import ms_to_samples
     except ImportError as error:
@@ -594,9 +876,11 @@ def main() -> None:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def run_process(label, runs, events, *args, **kwargs):
+    def run_process(label, runs, events, *args, expected=(1, 4, 0), **kwargs):
         """One ``process()`` call on the card, its log events recorded in
-        ``events`` and its kernel launches counted from 0."""
+        ``events`` and its kernel launches counted from 0: ``expected``
+        (K1, K2, K3) launches, those of ``Config()`` unless given
+        (``expected_launches``)."""
         events.clear()
 
         def record(*parts, **_kwargs):
@@ -605,6 +889,7 @@ def main() -> None:
         mt.log(info_handler=record, warning_handler=record, debug_handler=record)
         envelope.LAUNCHES = 0
         scan.LAUNCHES = 0
+        sos.LAUNCHES = 0
         torch.cuda.synchronize()
         start = time.perf_counter()
         try:
@@ -613,9 +898,10 @@ def main() -> None:
         finally:
             mt.log()
         wall = time.perf_counter() - start
-        runs.append({"run": label, "wall_s": wall, "k1": envelope.LAUNCHES, "k2": scan.LAUNCHES})
-        require(envelope.LAUNCHES >= 1, f"{label} process() launched K1 {envelope.LAUNCHES} times")
-        require(scan.LAUNCHES >= 4, f"{label} process() launched K2 {scan.LAUNCHES} times")
+        launches = (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
+        runs.append({"run": label, "wall_s": wall, "k1": launches[0], "k2": launches[1], "k3": launches[2]})
+        require(launches == tuple(expected),
+                f"{label} process() launched K1, K2 and K3 {launches} times, not {tuple(expected)}")
         # where the wall time went: each event's offset from the start
         return [{"t_s": round(t - start, 6), "event": message[:70]} for t, message in events]
 
@@ -834,16 +1120,20 @@ def main() -> None:
         torch.cuda.synchronize()
         def profiled_master():
             scan.LAUNCHES = 0
+            sos.LAUNCHES = 0
             mt.master(target_pcm, reference_pcm, config, device="cuda")
 
         master_ms, ops = profile_device(torch, profiled_master)
-        # K2's device kernels in the profile, one per call
-        scan_kernels = sum(o["calls"] for o in ops if "scan_kernel" in o["op"])
+        # K2's device kernels in the profile, one per call, and no K3
+        sos_kernels = sum(o["calls"] for o in ops if "sos_scan_kernel" in o["op"])
+        scan_kernels = sum(o["calls"] for o in ops if "scan_kernel" in o["op"]) - sos_kernels
         device_ms = sum(o["device_ms"] for o in ops)
         require(device_ms > 0, "the profiler saw no device time in master()")
+        _, k2_expected, k3_expected = expected_launches(config)
         require(
-            scan_kernels == scan.LAUNCHES >= 4,
-            f"master() made {scan.LAUNCHES} K2 calls but the profile shows {scan_kernels} scan kernels",
+            scan_kernels == scan.LAUNCHES == k2_expected and sos_kernels == sos.LAUNCHES == k3_expected,
+            f"master() made {scan.LAUNCHES} K2 and {sos.LAUNCHES} K3 calls but the profile shows "
+            f"{scan_kernels} scan and {sos_kernels} sos_scan kernels",
         )
         del target_pcm, reference_pcm
         out, rate = wav.read(out_path)
@@ -860,7 +1150,7 @@ def main() -> None:
     print(json.dumps({
         "master_profiled": {
             "wall_ms": master_ms, "device_ms": device_ms, "device_busy_share": device_ms / master_ms,
-            "k2_calls": scan.LAUNCHES, "k2_kernels": scan_kernels,
+            "k2_calls": scan.LAUNCHES, "k2_kernels": scan_kernels, "k3_kernels": sos_kernels,
             "top_ops": top(ops, 15, 60),
         }
     }), flush=True)
@@ -895,8 +1185,12 @@ def main() -> None:
     k1["batched"] = k1_batched
     k2["batched"] = k2_batched
 
-    # --- 8. results ---
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    # --- 8. the configs path: K3, Butterworth orders above 1, the device LOWESS ---
+    k3, configs = configs_path(mt, torch, device, cuda_ms, kernel_ms, run_process, bandwidth)
+    print(json.dumps({"configs_path": configs}), flush=True)
+
+    # --- 9. results ---
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

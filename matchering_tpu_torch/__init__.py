@@ -14,7 +14,7 @@ pads them to shared buckets and masters each at its true length
 (``matchering_tpu_torch.parallel``).  Entry points run on ``cuda`` unless
 given ``device=``; with no card they raise.  The command line is
 ``python -m matchering_tpu_torch``.  ``limit`` runs on its tensor's device.
-On CUDA the limiter runs two hand-written kernels
+On CUDA the limiter runs hand-written kernels
 (``matchering_tpu_torch.kernels``).
 """
 

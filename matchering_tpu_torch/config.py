@@ -11,8 +11,7 @@ Additions over the reference:
 * ``dtype`` — device compute precision (default float32; float64 serves
   the CPU parity tests).
 * ``lowess_exact`` — LOWESS at every grid point instead of the
-  ``delta``-skipping approximation (not on this port's path yet: the port
-  raises for it).
+  ``delta``-skipping approximation.
 * ``length_bucketing`` — pad both tracks to a multiple of N samples and
   master them at their true lengths (``stages.main``).
 """

@@ -66,7 +66,8 @@ def process_batch(
     samples).  ``dispatch``: ``"pipelined"`` runs one graph per pair
     (``master_pairs``), all enqueued before any result is read;
     ``"vmapped"`` runs one batch-first graph over all pairs
-    (``master_batch``): one K1 and four K2 launches for the batch.
+    (``master_batch``): one set of kernel launches for the batch (one K1
+    and four K2 with the default filter orders).
     ``"auto"`` is ``"pipelined"``, as in the JAX package without a time
     axis.  ``mesh`` is not ported: any mesh raises NotImplementedError."""
     refuse_mesh(mesh)

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels and their plain PyTorch twins.
 
 * ``envelope`` — K1, the limiter front end (``csrc/envelope.cu``);
-* ``scan`` — K2, the first-order IIR scan (``csrc/scan.cu``).
+* ``scan`` — K2, the first-order IIR scan (``csrc/scan.cu``);
+* ``sos`` — K3, the second-order-section scan (``csrc/sos_scan.cu``).
 
 Each wrapper runs its plain twin for a CPU tensor and launches its kernel
 for a CUDA tensor, raising if it cannot; it never falls back from one to

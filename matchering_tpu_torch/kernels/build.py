@@ -49,6 +49,11 @@ _SIGNATURES = {
     "mtpu_scan_powers": (_I, []),
     "mtpu_scan_f32": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P]),
     "mtpu_scan_f64": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P]),
+    "mtpu_sos_run": (_I, []),
+    "mtpu_sos_tile": (_I, []),
+    "mtpu_sos_powers": (_I, []),
+    "mtpu_sos_f32": (_I, [_P, _P, _LL, _LL, _D, _D, _D, _D, _D, _P, _P, _P]),
+    "mtpu_sos_f64": (_I, [_P, _P, _LL, _LL, _D, _D, _D, _D, _D, _P, _P, _P]),
 }
 
 # C constants the Python wrappers mirror: C function -> (module, attribute)
@@ -58,6 +63,9 @@ _CONSTANTS = {
     "mtpu_scan_run": ("scan", "RUN"),
     "mtpu_scan_tile": ("scan", "TILE"),
     "mtpu_scan_powers": ("scan", "POWERS"),
+    "mtpu_sos_run": ("sos", "RUN"),
+    "mtpu_sos_tile": ("sos", "TILE"),
+    "mtpu_sos_powers": ("sos", "POWERS"),
 }
 
 _library = None  # the loaded ctypes.CDLL, once built

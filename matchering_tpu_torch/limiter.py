@@ -1,17 +1,21 @@
-"""Hyrax brickwall limiter (PyTorch + kernels K1 and K2).
+"""Hyrax brickwall limiter (PyTorch + kernels K1, K2 and K3).
 
 Counterpart of ``matchering_tpu.limiter.limit`` (reference
 ``matchering/limiter/hyrax.py:32-99``): hard-clip gain from the
 cross-channel peak, attack stage (centred sliding max + zero-phase
-one-pole smoothing), hold/release stage (causal sliding max + first-order
-Butterworth low-passes), final gain = 1 - max of the three envelopes.
+one-pole smoothing), hold/release stage (causal sliding max + Butterworth
+low-passes of ``hold_filter_order`` and ``release_filter_order``), final
+gain = 1 - max of the three envelopes.
 
 Batch-first: one (n, 2) track or a (B, n, 2) batch, whose rows may end at
 their own true lengths (the JAX package's ``length`` branch).  On every
 device the front end (gain and attack sliding max) is
 ``kernels.envelope.limiter_front_end``: K1 on CUDA, its plain twin on the
-CPU.  The four IIR passes go through K2 (``ops.iir``): one K1 and four K2
-launches per call, whatever the batch size.
+CPU.  The IIR passes go through ``ops.iir``: the attack's filtfilt is two
+K2 launches, and a Butterworth low-pass of order h is one K2 launch at
+order 1, else one K3 launch per scipy section, ``ceil(h / 2)`` in all.
+With the default orders 1/1 that is one K1 and four K2 launches per call,
+whatever the batch size.
 """
 
 from __future__ import annotations

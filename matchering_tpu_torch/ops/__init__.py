@@ -1,3 +1,3 @@
-"""DSP ops of the port: plain PyTorch on the caller's device, with the two
-hand-written CUDA kernels behind ``sliding``/``iir`` callers (see
+"""DSP ops of the port: plain PyTorch on the caller's device, with the
+hand-written CUDA kernels behind the limiter's ``iir`` calls (see
 ``matchering_tpu_torch.kernels``)."""

@@ -1,9 +1,11 @@
-"""First-order IIR filtering of the limiter (PyTorch + kernel K2).
+"""IIR filtering of the limiter (PyTorch + kernels K2 and K3).
 
-Counterpart of the first-order parts of ``matchering_tpu.ops.iir``
-(reference ``matchering/limiter/hyrax.py:48-75``).  Every pass runs through
-``kernels.scan.first_order_filter``: kernel K2 on a CUDA tensor, its plain
-float64 twin on a CPU tensor.  Filter coefficients are host floats.
+Counterpart of ``matchering_tpu.ops.iir`` (reference
+``matchering/limiter/hyrax.py:48-75``).  A first-order filter runs through
+``kernels.scan.first_order_filter`` (K2), each second-order section of a
+higher order through ``kernels.sos.sos_filter`` (K3): the kernel on a CUDA
+tensor, its plain float64 twin on a CPU tensor.  Filter coefficients are host floats,
+designed on the host with scipy where the order is above 1.
 
 Semantics kept exactly:
 
@@ -14,20 +16,29 @@ Semantics kept exactly:
   along the last axis of (n,) or (B, n); with ``lengths``,
   ``filtfilt(b, a, x[r, :L_r])`` for every row r of a zero-padded batch
   (the counterpart of ``filtfilt_first_order_truncated``);
-* ``butter1_coefficients`` — ``scipy.signal.butter(1, wn, fs=fs)``.
+* ``butter1_coefficients`` — ``scipy.signal.butter(1, wn, fs=fs)``;
+* ``butter_lowpass`` — ``lfilter(*butter(order, wn, fs=fs), x)`` at any
+  order, run as ``sosfilt(butter(..., output="sos"), x)`` above order 1:
+  scipy's sections in scipy's order, each on K3;
+* ``lfilter`` — ``scipy.signal.lfilter(b, a, x)`` with zero state at any
+  order: K2 for order 1, K3 for order 2, above that ``tf2sos``'s cascade.
 
-Higher Butterworth orders (an SOS cascade in the JAX package) are not
-ported yet: ``butter_lowpass`` raises for them.
+The JAX package runs each section (and ``lfilter`` above order 1) as a
+2x2 (or n x n) affine ``associative_scan`` (``iir.py:970-1049``).  At the
+release cutoff that scan is off by 1.43e-4 in float64 and gives NaN in
+float32 at order 2; the port follows scipy instead, within 1e-9 in
+float64 (``tests/test_torch_configs.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels import scan
+from ..kernels import scan, sos
 from ..utils import RowInts
 
 
@@ -148,10 +159,83 @@ def _filtfilt_rows(
     return y[:, padlen:]
 
 
+class SecondOrderSection(NamedTuple):
+    """One row of scipy's ``sos``, normalised by a0: b = (b0, b1, b2),
+    a = (1, a1, a2), all host floats."""
+
+    b0: float
+    b1: float
+    b2: float
+    a1: float
+    a2: float
+
+    @classmethod
+    def of(cls, row: Sequence[float]) -> "SecondOrderSection":
+        """From a (b0, b1, b2, a0, a1, a2) row, divided through by a0."""
+        b0, b1, b2, a0, a1, a2 = (float(v) for v in row)
+        return cls(b0 / a0, b1 / a0, b2 / a0, a1 / a0, a2 / a0)
+
+
+def butter_coefficients(order: int, cutoff_hz: float, fs: float):
+    """Digital Butterworth low-pass design, identical to
+    ``scipy.signal.butter(order, cutoff_hz, fs=fs)``: (b, a) as tuples of
+    host floats (order 1 in closed form)."""
+    if order == 1:
+        f = butter1_coefficients(cutoff_hz, fs)
+        return (f.b0, f.b1), (1.0, f.a1)
+    from scipy import signal
+
+    b, a = signal.butter(order, cutoff_hz, fs=fs)
+    return tuple(float(v) for v in b), tuple(float(v) for v in a)
+
+
+@functools.lru_cache(maxsize=64)
+def butter_sos(order: int, cutoff_hz: float, fs: float) -> Tuple[SecondOrderSection, ...]:
+    """``scipy.signal.butter(order, cutoff_hz, fs=fs, output="sos")`` as
+    sections in scipy's order, designed on the host."""
+    from scipy import signal
+
+    return tuple(
+        SecondOrderSection.of(row) for row in signal.butter(order, cutoff_hz, fs=fs, output="sos")
+    )
+
+
+def sos_cascade(sections: Sequence[SecondOrderSection], x: torch.Tensor) -> torch.Tensor:
+    """``scipy.signal.sosfilt(sections, x)`` with zero state along the last
+    axis: one K3 launch per section."""
+    for section in sections:
+        x = sos.sos_filter(x, *section)
+    return x
+
+
 def butter_lowpass(order: int, cutoff_hz: float, fs: float, x: torch.Tensor) -> torch.Tensor:
     """``scipy.signal.lfilter(*scipy.signal.butter(order, f, fs=fs), x)``
-    with zero initial state, along the last axis — order 1 only in this
-    port.  It is causal, so a zero-padded row needs no length."""
-    if order != 1:
-        raise NotImplementedError("Butterworth orders above 1 are not ported yet")
-    return lfilter_first_order(butter1_coefficients(cutoff_hz, fs), x)
+    with zero initial state, along the last axis: order 1 in closed form
+    on K2, higher orders as scipy's section cascade (:func:`sos_cascade`).
+    It is causal, so a zero-padded row needs no length."""
+    if order == 1:
+        return lfilter_first_order(butter1_coefficients(cutoff_hz, fs), x)
+    return sos_cascade(butter_sos(order, float(cutoff_hz), float(fs)), x)
+
+
+def lfilter(b: Sequence[float], a: Sequence[float], x: torch.Tensor) -> torch.Tensor:
+    """``scipy.signal.lfilter(b, a, x)`` with zero initial state, any order,
+    along the last axis (host coefficients, normalised by a[0]): order 1
+    on K2, order 2 on K3, and higher orders as the cascade of
+    ``scipy.signal.tf2sos(b, a)``.  The JAX package's (n, n) companion
+    scan is not carried over: sections stay accurate where it does not."""
+    b = [float(v) for v in b]
+    a = [float(v) for v in a]
+    order = max(len(a), len(b)) - 1
+    if order == 0:
+        return x * (b[0] / a[0])
+    if order > 2:
+        from scipy import signal
+
+        return sos_cascade([SecondOrderSection.of(row) for row in signal.tf2sos(b, a)], x)
+    b = b + [0.0] * (3 - len(b))
+    a = a + [0.0] * (3 - len(a))
+    section = SecondOrderSection.of((*b, *a))
+    if order == 1:
+        return lfilter_first_order(FirstOrderFilter(section.b0, section.b1, section.a1), x)
+    return sos_cascade([section], x)

@@ -1,21 +1,31 @@
 """LOWESS smoother on a fixed uniform grid, planned on the host (numpy).
 
-Copy of the host planners of ``matchering_tpu.ops.lowess`` (reference
-``matchering/dsp.py:103-106``: statsmodels' lowess on ``linspace(0, 1, n)``
-with ``it=0`` and ``delta=0.001`` by default).  Because the abscissae are a
-static uniform grid and ``it=0`` makes the smoother linear in the data, the
-whole smoother is a pair of dense float64 matrices
-(:func:`linear_operator`), which ``smoothing`` folds into its interpolation
-operators.  The robustness iterations (``it > 0``) and the exact
-(``delta = 0``) form are not ported yet.
+Copy of ``matchering_tpu.ops.lowess`` (reference ``matchering/dsp.py:103-106``:
+statsmodels' lowess on ``linspace(0, 1, n)`` with ``it=0`` and
+``delta=0.001`` by default).  Everything data-independent is planned on the
+host (:func:`plan_lowess`): the ``delta``-skipping anchors, each anchor's
+k-nearest window and tricube weights, and the ``it=0`` regression rows.
+
+* ``it=0`` with ``delta > 0`` is linear in the data: the whole smoother is
+  a pair of dense float64 matrices (:func:`linear_operator`), which
+  ``smoothing`` folds into its interpolation operators.
+* Otherwise (``it > 0``, or the exact ``delta = 0`` form) :func:`smooth`
+  runs on the device over a batch of curves: the windowed gather, the
+  ``it=0`` fit, and per robustness iteration the bisquare weights from the
+  median residual and a closed-form weighted regression per anchor
+  (``matchering_tpu/ops/lowess.py:181-217``).  The plan's index and weight
+  arrays are staged once per device (:func:`stage_plan`).  It runs in
+  float64 whatever the working dtype: the JAX float32 robust smoother is
+  3.6e-5 off its float64 on a curve of scale 1.79 (about 94 dB).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 
 class LowessPlan(NamedTuple):
@@ -152,3 +162,105 @@ def linear_operator(n: int, frac: float, delta: float):
     W[idx, left] += 1.0 - w
     W[idx, right] += w
     return W, F
+
+
+class StagedPlan(NamedTuple):
+    """A :class:`LowessPlan`'s arrays on a device, in float64, with the
+    smoother's robustness iterations: what :func:`smooth` reads."""
+
+    it: int
+    win_idx: torch.Tensor  # (na * k,) int64 — flattened window indices
+    fit_rows: torch.Tensor  # (na, k) — it=0 regression rows
+    tricube: torch.Tensor  # (na, k)
+    xw: torch.Tensor  # (na, k)
+    xvals: torch.Tensor  # (na, 1)
+    interp_left: torch.Tensor  # (n,) int64
+    interp_right: torch.Tensor  # (n,) int64
+    interp_weight: torch.Tensor  # (n,)
+
+
+@functools.lru_cache(maxsize=8)
+def stage_plan(n: int, frac: float, it: int, delta: float, device) -> StagedPlan:
+    """The plan of ``(n, frac, delta)`` staged on ``device`` once (the
+    exact plan's window indices are 20 MB at n = 8193), for ``it``
+    robustness iterations."""
+    plan = plan_lowess(n, float(frac), float(delta))
+    device = torch.device(device)
+
+    def on(array, dtype=torch.float64):
+        return torch.as_tensor(np.ascontiguousarray(array), dtype=dtype, device=device)
+
+    win_idx = plan.window_starts[:, None] + np.arange(plan.k)[None, :]
+    na = plan.anchors.shape[0]
+    return StagedPlan(
+        it=int(it),
+        win_idx=on(win_idx.reshape(-1), torch.int64),
+        fit_rows=on(plan.fit_rows),
+        tricube=on(plan.tricube),
+        xw=on(plan.xw),
+        xvals=on(plan.xvals[:, None]),
+        interp_left=on(plan.interp_left, torch.int64),
+        interp_right=on(np.minimum(plan.interp_left + 1, na - 1), torch.int64),
+        interp_weight=on(plan.interp_weight),
+    )
+
+
+def _interp_from_anchors(plan: StagedPlan, fitted: torch.Tensor) -> torch.Tensor:
+    left = fitted.index_select(-1, plan.interp_left)
+    right = fitted.index_select(-1, plan.interp_right)
+    return (1.0 - plan.interp_weight) * left + plan.interp_weight * right
+
+
+def _wls_fit(plan: StagedPlan, weights: torch.Tensor, yw: torch.Tensor) -> torch.Tensor:
+    """Closed-form weighted regression at each anchor with the JAX
+    package's device floors (``_wls_fit_jax``: 1e-30, and ``var > 1e-12``
+    absolute), not the host rows' 1e-300 and relative test."""
+    wsum = torch.clamp(weights.sum(-1, keepdim=True), min=1e-30)
+    wn = weights / wsum
+    xbar = (wn * plan.xw).sum(-1, keepdim=True)
+    dev = plan.xw - xbar
+    var = (wn * dev**2).sum(-1, keepdim=True)
+    slope = torch.where(var > 1e-12, dev * (plan.xvals - xbar) / torch.clamp(var, min=1e-30), 0.0)
+    return (wn * (1.0 + slope) * yw).sum(-1)
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """Median along the last axis from a device sort: the mean of the two
+    middle values for an even length, as ``jnp.median`` (``torch.median``
+    returns the lower one)."""
+    n = x.shape[-1]
+    ordered = torch.sort(x, dim=-1).values
+    return 0.5 * (ordered[..., (n - 1) // 2] + ordered[..., n // 2])
+
+
+def smooth(
+    y: torch.Tensor,
+    frac: Optional[float] = None,
+    it: int = 0,
+    delta: float = 0.001,
+    plan: Optional[StagedPlan] = None,
+) -> torch.Tensor:
+    """LOWESS-smooth each row of ``y`` ((B, n) or (n,)) sampled on
+    ``linspace(0, 1, n)``, ``statsmodels...lowess(y, x, frac, it,
+    delta)[:, 1]``, the counterpart of ``matchering_tpu.ops.lowess.smooth``
+    over a batch of curves.  ``plan``: the staged plan of the parameters
+    (:func:`stage_plan`), in place of ``frac``, ``it`` and ``delta``.
+    Runs in float64 on ``y``'s device with no host sync, and returns
+    ``y``'s dtype."""
+    if plan is None:
+        plan = stage_plan(y.shape[-1], float(frac), int(it), float(delta), y.device)
+    na, k = plan.fit_rows.shape
+    values = y.to(torch.float64)
+
+    def windows(v):
+        return v.index_select(-1, plan.win_idx).reshape(*v.shape[:-1], na, k)
+
+    yw = windows(values)
+    out = _interp_from_anchors(plan, (plan.fit_rows * yw).sum(-1))
+    for _ in range(plan.it):
+        resid = (values - out).abs()
+        scale = _median(resid)[..., None]
+        rw = torch.clamp(resid / torch.clamp(6.0 * scale, min=1e-300), 0.0, 1.0)
+        rw = (1.0 - rw**2) ** 2  # bisquare
+        out = _interp_from_anchors(plan, _wls_fit(plan, plan.tricube * windows(rw), yw))
+    return out.to(y.dtype)

@@ -4,10 +4,14 @@ Counterpart of ``matchering_tpu.ops.smoothing`` (reference
 ``matchering/stage_helpers/match_frequencies.py:45-75``).  Both cubic-spline
 resamplings interpolate between static frequency grids, so each is a dense
 linear operator built once on the host in float64 (scipy's ``interp1d``
-applied to the identity).  The ``it=0`` LOWESS smoother is linear too
-(``lowess.linear_operator``), and is folded in on the host:
+applied to the identity).  The ``it=0`` LOWESS smoother with ``delta > 0``
+is linear too (``lowess.linear_operator``), and is folded in on the host:
 ``to_log' = F @ to_log`` and ``to_lin' = to_lin @ W``.  The device then
-smooths a curve with two matmuls.
+smooths a curve with two matmuls.  Any other LOWESS (``lowess_it > 0``,
+``lowess_exact``, ``lowess_delta = 0``) runs between the two plain
+operators as ``lowess.smooth`` on the device.  Whether the smoother is
+folded is an explicit field of the operator state, ``Smoothing.lowess``,
+not read off the operators' shape.
 
 Boundary semantics kept: the smoothed curve's DC bin is zeroed and bin 1
 keeps its unsmoothed value (``match_frequencies.py:73-74``).
@@ -16,7 +20,7 @@ keeps its unsmoothed value (``match_frequencies.py:73-74``).
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,35 +70,54 @@ def folded_operators(
     return F @ to_log, to_lin @ W
 
 
+class Smoothing(NamedTuple):
+    """The smoothing state of a ``Config`` on a device: the (to_log,
+    to_lin) operators in the working dtype and, where the LOWESS is not
+    folded into them, its staged plan (None: folded)."""
+
+    to_log: torch.Tensor
+    to_lin: torch.Tensor
+    lowess: Optional[lowess.StagedPlan] = None
+
+
+def lowess_folds(config) -> bool:
+    """True where the configured LOWESS is a fixed linear map with an
+    anchor subset, folded into the operators on the host
+    (``matchering_tpu/ops/smoothing.py:88-93``)."""
+    return config.lowess_it == 0 and config.lowess_delta > 0 and not config.lowess_exact
+
+
+def lowess_parameters(config) -> Tuple[float, int, float]:
+    """(frac, it, delta) of the configured LOWESS; ``lowess_exact`` means
+    delta = 0 (``matchering_tpu/stages.py:174``)."""
+    delta = 0.0 if config.lowess_exact else config.lowess_delta
+    return float(config.lowess_frac), int(config.lowess_it), float(delta)
+
+
 def host_operators_for_config(config) -> Tuple[np.ndarray, np.ndarray]:
-    """:func:`folded_operators` for a ``Config``.  Raises for the
-    configurations whose smoother is not a fixed linear map or whose dense
-    form is not ported (``lowess_it > 0``, ``lowess_exact``)."""
-    if config.lowess_it != 0:
-        raise NotImplementedError("lowess_it > 0 is not ported yet")
-    if config.lowess_exact or config.lowess_delta <= 0:
-        raise NotImplementedError("exact LOWESS (delta = 0) is not ported yet")
-    return folded_operators(
-        config.internal_sample_rate,
-        config.fft_size,
-        config.lin_log_oversampling,
-        config.lowess_frac,
-        config.lowess_delta,
-    )
+    """The (to_log, to_lin) float64 numpy operators of a ``Config``, equal
+    to the JAX package's ``operator_arrays_for_config``: with the LOWESS
+    folded in where :func:`lowess_folds`, else the plain interpolation
+    operators."""
+    rates = (config.internal_sample_rate, config.fft_size, config.lin_log_oversampling)
+    if lowess_folds(config):
+        return folded_operators(*rates, config.lowess_frac, config.lowess_delta)
+    return interpolation_operators(*rates)
 
 
-def smooth_exponentially(
-    matching_fft: torch.Tensor, operators: Tuple[torch.Tensor, torch.Tensor]
-) -> torch.Tensor:
+def smooth_exponentially(matching_fft: torch.Tensor, operators: Smoothing) -> torch.Tensor:
     """Smooth matching spectra (..., fft_size//2 + 1) on the log grid with
-    the folded ``(to_log, to_lin)`` operator pair on their device; both
+    the smoothing state on their device: ``to_log``, the LOWESS where it is
+    not folded (``lowess.smooth``, in float64), then ``to_lin``; both
     products contract the last axis, so a batch of curves is one product.
 
     The caller keeps float32 matmuls at full precision
-    (``torch.backends.cuda.matmul.allow_tf32 = False``, set in
-    ``stages.master``): TF32 keeps about three decimal digits."""
-    to_log, to_lin = operators
-    filtered = (matching_fft @ to_log.mT) @ to_lin.mT
+    (``torch.backends.cuda.matmul.allow_tf32 = False``, set by
+    ``state.operators_for_config``): TF32 keeps about three decimal digits."""
+    on_log_grid = matching_fft @ operators.to_log.mT
+    if operators.lowess is not None:
+        on_log_grid = lowess.smooth(on_log_grid, plan=operators.lowess)
+    filtered = on_log_grid @ operators.to_lin.mT
     filtered[..., 0] = 0.0
     filtered[..., 1] = matching_fft[..., 1]
     return filtered

@@ -11,15 +11,17 @@ unpadded pair i (the reference analyses the exact track length,
 Two dispatches, as in the JAX package:
 
 * ``master_batch`` runs ONE batch-first graph over the B rows: one set of
-  launches for the batch (one K1 and four K2 launches in its limiter);
+  launches for the batch (with the default filter orders, one K1 and four
+  K2 launches in its limiter);
 * ``master_pairs`` runs one graph per pair, all enqueued before any result
   is read, optionally round-robin over several devices.
 
 There is no compile to amortise in eager PyTorch, so the two differ only
 in launch count and kernel widths; their speed on the card is measured by
 ``chip_smoke.py`` (``PERF.md``).  Lengths are checked while they are host
-ints, and tracks, lengths and operators are staged before any graph runs,
-since a pageable host-to-device copy waits for the device.
+ints, and tracks, lengths and the smoothing state (the operators and any
+LOWESS plan) are staged before any graph runs, since a pageable
+host-to-device copy waits for the device.
 """
 
 from __future__ import annotations
@@ -136,7 +138,7 @@ def master_pairs(
     padded length).
 
     ``devices`` (optional): torch devices the pairs go round-robin over,
-    pair i on ``devices[i % len(devices)]``; the smoothing operators are
+    pair i on ``devices[i % len(devices)]``; the smoothing state is
     staged once per device and the results stay there.  Without it every
     pair runs on ``device`` (``cuda`` unless named).  Returns one
     ``MasterOutput`` per pair, in order."""

@@ -114,11 +114,12 @@ def _fir_from_spectra(
     target_fft: torch.Tensor,
     reference_fft: torch.Tensor,
     config: Config,
-    operators: Tuple[torch.Tensor, torch.Tensor],
+    operators: smoothing.Smoothing,
 ) -> torch.Tensor:
     """Matching-EQ FIRs (B, fft_size) from averaged spectra (reference
     ``get_fir``, ``match_frequencies.py:78-99``): matching curve, log-grid
-    smoothing, linear-phase FIR synthesis."""
+    smoothing (the folded operators, or the plain ones around the device
+    LOWESS), linear-phase FIR synthesis."""
     matching_fft = reference_fft / torch.clamp(target_fft, min=config.min_value)
     smoothed = smoothing.smooth_exponentially(matching_fft, operators)
     return fir.fir_from_magnitude(smoothed, config.fft_size)
@@ -128,7 +129,7 @@ def master_graph(
     target: torch.Tensor,
     reference: torch.Tensor,
     config: Config,
-    operators: Tuple[torch.Tensor, torch.Tensor],
+    operators: smoothing.Smoothing,
     need_default: bool = True,
     need_no_limiter: bool = False,
     need_no_limiter_normalized: bool = False,
@@ -139,8 +140,12 @@ def master_graph(
 
     target/reference: (n, 2) stereo, or (B, n, 2) and (B, m, 2) batches,
     at ``config.internal_sample_rate``, float or raw int16/int32 PCM
-    (converted on the device).  ``operators``: the folded smoothing
-    matrices on that device, in the working dtype (see :func:`master`).
+    (converted on the device).  ``operators``: the smoothing state of
+    ``config`` on that device (``state.operators_for_config``): the two
+    operators in the working dtype, and the staged LOWESS plan where it
+    does not fold into them.  With ``lowess_it > 0`` the robustness
+    iterations run here too, still with no host sync (the median comes
+    from a device sort).
 
     ``target_length`` / ``reference_length`` (``RowInts``, one per row,
     both or neither): the true lengths of zero-padded tracks.  Every
@@ -285,7 +290,7 @@ def master(
     reference_length: Optional[int] = None,
 ) -> MasterOutput:
     """:func:`master_graph` of one pair on ``device`` (``cuda`` unless
-    named; no CPU fallback), with the smoothing operators built on the host
+    named; no CPU fallback), with the smoothing state built on the host
     and moved there.  Inputs may be numpy arrays or tensors.
 
     ``target_length`` / ``reference_length`` (host ints, both or neither):

@@ -1,21 +1,23 @@
 """The state carried between the JAX package and the port.
 
-The system has no learned weights: its state is the ``Config`` and the two
-smoothing operators built from it on the host.  These helpers let a caller
-feed both packages the same of each, and stage the operators on a device
-(once per device for a batch of pairs, ``parallel.batch``).
+The system has no learned weights: its state is the ``Config`` and the
+smoothing state built from it on the host (``ops.smoothing.Smoothing``: the
+two operators and, where the LOWESS does not fold into them, its staged
+plan).  These helpers let a caller feed both packages the same of each, and
+stage the state on a device once per (smoothing parameters, dtype,
+device).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Tuple
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
 from .config import Config, LimiterConfig
-from .ops import smoothing
+from .ops import lowess, smoothing
 
 # fields a Config takes in seconds and stores in samples
 _SAMPLE_FIELDS = ("max_piece_size", "preview_size", "preview_analysis_step", "preview_fade_size")
@@ -41,22 +43,46 @@ def config_from_dict(fields: Mapping) -> Config:
 
 
 def operators_from_numpy(
-    to_log: np.ndarray, to_lin: np.ndarray, device, dtype: torch.dtype
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A (to_log, to_lin) smoothing operator pair as tensors for
-    ``stages.master_graph``."""
-    return (
+    to_log: np.ndarray, to_lin: np.ndarray, device, dtype: torch.dtype, config: Config
+) -> smoothing.Smoothing:
+    """The smoothing state for ``stages.master_graph`` from the (to_log,
+    to_lin) operator pair of ``config``, e.g. the JAX package's
+    ``operator_arrays_for_config(config)``, for any config: where its LOWESS
+    does not fold (``smoothing.lowess_folds``), the pair is the plain
+    interpolation and the LOWESS plan is staged beside it."""
+    plan = None
+    if not smoothing.lowess_folds(config):
+        frac, it, delta = smoothing.lowess_parameters(config)
+        plan = lowess.stage_plan(config.log_grid_size, frac, it, delta, torch.device(device))
+    return smoothing.Smoothing(
         torch.as_tensor(np.asarray(to_log), dtype=dtype, device=device),
         torch.as_tensor(np.asarray(to_lin), dtype=dtype, device=device),
+        plan,
     )
 
 
-def operators_for_config(config: Config, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The folded smoothing operators of ``config``, built on the host and
-    staged on ``device`` in the working dtype."""
+# the staged smoothing states, oldest first
+_STAGED: Dict[tuple, smoothing.Smoothing] = {}
+_STAGED_MAX = 4
+
+
+def operators_for_config(config: Config, device) -> smoothing.Smoothing:
+    """The smoothing state of ``config``, built on the host and staged on
+    ``device`` in the working dtype (the LOWESS plan in float64), once per
+    (smoothing parameters, dtype, device): the plain operators of an
+    unfolded LOWESS are 134 MB in float32 at the default ``fft_size``."""
     # the smoothing operators are float32 matmuls on the card: keep them
     # at full float32 precision (TF32 keeps about three decimal digits);
     # this is PyTorch's default, set here so the run does not depend on it
     torch.backends.cuda.matmul.allow_tf32 = False
-    to_log, to_lin = smoothing.host_operators_for_config(config)
-    return operators_from_numpy(to_log, to_lin, device, config.torch_dtype)
+    device = torch.device(device)
+    # (frac, it, delta) with delta = 0 for lowess_exact decide the smoother
+    rates = (config.internal_sample_rate, config.fft_size, config.lin_log_oversampling)
+    key = (*rates, *smoothing.lowess_parameters(config), config.torch_dtype, device)
+    if key not in _STAGED:
+        if len(_STAGED) >= _STAGED_MAX:
+            del _STAGED[next(iter(_STAGED))]  # the oldest
+        to_log, to_lin = smoothing.host_operators_for_config(config)
+        _STAGED[key] = operators_from_numpy(to_log, to_lin, device, config.torch_dtype, config)
+    return _STAGED[key]
+

@@ -1,5 +1,7 @@
-"""The port's two kernels, K1 (limiter front end) and K2 (first-order IIR
-scan), through their plain twins on the CPU.
+"""The port's kernels K1 (limiter front end) and K2 (first-order IIR scan)
+through their plain twins on the CPU, and the wrappers of all three (K3,
+the second-order-section scan, is held to scipy and modelled in
+``test_torch_configs.py``).
 
 The CUDA kernels themselves run only on a card: ``chip_smoke.py`` holds
 each against its twin there.  Here the twins are held against the JAX
@@ -21,7 +23,7 @@ from scipy import signal
 
 import matchering_tpu.ops.pallas_envelope as pe
 from matchering_tpu.ops import iir as jiir
-from matchering_tpu_torch.kernels import build, envelope, scan
+from matchering_tpu_torch.kernels import build, envelope, scan, sos
 from matchering_tpu_torch.ops import iir
 
 THRESHOLD = 0.998138427734375  # Config().threshold
@@ -123,12 +125,12 @@ class TestKernelWrappers:
 
         monkeypatch.setenv("PATH", str(tmp_path))
         monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-        for module in (build, envelope, scan):
+        for module in (build, envelope, scan, sos):
             importlib.reload(module)
         with pytest.raises(RuntimeError, match="nvcc"):
             build._nvcc()
 
-    @pytest.mark.parametrize("kernel", ["envelope", "scan"])
+    @pytest.mark.parametrize("kernel", ["envelope", "scan", "sos"])
     def test_cuda_tensor_raises_instead_of_running_the_twin(
         self, monkeypatch, tmp_path, kernel
     ):
@@ -151,9 +153,12 @@ class TestKernelWrappers:
         if kernel == "envelope":
             monkeypatch.setattr(envelope, "limiter_front_end_plain", twin)
             call = lambda: envelope.limiter_front_end(fake, THRESHOLD, 44)  # noqa: E731
-        else:
+        elif kernel == "scan":
             monkeypatch.setattr(scan, "first_order_filter_plain", twin)
             call = lambda: scan.first_order_filter(fake, 0.5, 0.0, -0.5)  # noqa: E731
+        else:
+            monkeypatch.setattr(sos, "sos_filter_plain", twin)
+            call = lambda: sos.sos_filter(fake, 0.25, 0.5, 0.25, -0.5, 0.1)  # noqa: E731
         with pytest.raises(RuntimeError, match="nvcc"):
             call()
         twin.assert_not_called()
@@ -166,7 +171,7 @@ class TestKernelWrappers:
         digest = build._source_hash(build.sources((".cu", ".cuh")))
         (tmp_path / f"libmtpu_kernels_{digest}.so").touch()
         lib = mock.MagicMock()
-        modules = {"envelope": envelope, "scan": scan}
+        modules = {"envelope": envelope, "scan": scan, "sos": sos}
         for name, (module, attribute) in build._CONSTANTS.items():
             getattr(lib, name).return_value = getattr(modules[module], attribute)
         monkeypatch.setattr(build.ctypes, "CDLL", mock.MagicMock(return_value=lib))

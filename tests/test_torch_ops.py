@@ -150,15 +150,23 @@ class TestSmoothing:
             config.lin_log_oversampling, config.lowess_frac, config.lowess_it,
             config.lowess_delta, operators=ops64,
         )
-        ops = state.operators_from_numpy(*ops64, device="cpu", dtype=torch.float64)
+        port_config = state.config_from_dict(dataclasses.asdict(config))
+        ops = state.operators_from_numpy(*ops64, device="cpu", dtype=torch.float64, config=port_config)
+        assert ops.lowess is None
         assert_close(smoothing.smooth_exponentially(t(curve), ops), want)
 
     @pytest.mark.parametrize("kwargs", [{"lowess_it": 1}, {"lowess_exact": True}])
-    def test_unported_smoothers_raise(self, kwargs):
-        from matchering_tpu_torch import Config
-
-        with pytest.raises(NotImplementedError):
-            smoothing.host_operators_for_config(Config(**kwargs))
+    def test_unfolded_smoothers_keep_the_plain_operators(self, kwargs):
+        """``lowess_it > 0`` and ``lowess_exact`` do not fold: the host
+        operators are the plain interpolation, as the JAX package's."""
+        config = mj.Config(dtype="float64", **kwargs)
+        port_config = state.config_from_dict(dataclasses.asdict(config))
+        assert not smoothing.lowess_folds(port_config)
+        want = [np.asarray(m) for m in jsm.operator_arrays_for_config(config)]
+        got = smoothing.host_operators_for_config(port_config)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-12)
 
 
 class TestConvolve:
