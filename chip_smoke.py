@@ -77,13 +77,16 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    ``master_batch`` of that config on three rows (>= 95 dB per row), its
    dynamic graph run under ``torch.cuda.set_sync_debug_mode("error")``;
 9. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
-   kernel's batched numbers from phases 3, 7 and 8), then, last, the
-   device line ``{"ok": true, "device": {...}}``.
+   kernel's batched numbers from phases 3, 7 and 8, and each launch's
+   registers, shared memory and resident blocks per SM from the kernels'
+   info queries, beside the grid its wrapper recorded for the timed
+   launches), then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code and no device line.
 It imports nothing of JAX or ``matchering_tpu``.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -130,6 +133,20 @@ def fail(message: str) -> None:
 def require(condition: bool, message: str) -> None:
     if not condition:
         fail(message)
+
+
+def launch_numbers(query: str, *args, grid: int) -> dict:
+    """A kernel's launch: what its info query reads (csrc/info.cuh:
+    registers a thread, shared memory, resident blocks per SM), and
+    ``grid``, the blocks of its last timed launch as its wrapper recorded
+    them (``LAST_GRID``)."""
+    from matchering_tpu_torch.kernels import build
+
+    out = (ctypes.c_longlong * 6)()
+    build.check(getattr(build.library(), query)(*args, out), query)
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "resident_blocks_per_sm",
+            "threads_per_block", "local_bytes")
+    return {**dict(zip(keys, (int(v) for v in out))), "grid": grid}
 
 
 def make_pair(seconds: int, sr: int, seed: int):
@@ -390,6 +407,7 @@ def length_modes(torch, device, config, rng, release, k2_error, cuda_ms, kernel_
         **bound(true_samples * 8 + padded * 8, true_samples * (7 + window - 1), F32_FLOPS),
         "bound_ms_padded": 1e3 * padded * 16 / bandwidth,
         "library_ms": None,
+        "launch": launch_numbers("mtpu_envelope_info", 0, window, grid=envelope.LAST_GRID),
     }
     k2_batched = {
         **common, "max_abs_err": k2_worst[torch.float32], "tolerance": SCAN_TOL,
@@ -400,6 +418,7 @@ def length_modes(torch, device, config, rng, release, k2_error, cuda_ms, kernel_
         **bound(true_samples * 4 + padded * 4, true_samples * 4, F64_FLOPS),
         "bound_ms_padded": 1e3 * padded * 8 / bandwidth,
         "library_ms": None, "cases": cases,
+        "launch": launch_numbers("mtpu_scan_info", 0, grid=scan.LAST_GRID),
     }
     for name, numbers in (("K1", k1_batched), ("K2", k2_batched)):
         print(f"{name} over {BATCH_ROWS} rows of {BUCKET_N}: {numbers['ms']:.4f} ms a call, "
@@ -676,12 +695,14 @@ def configs_path(mt, torch, device, cuda_ms, kernel_ms, run_process, bandwidth):
             "cutoff": name, "section": list(section),
             "ms": cuda_ms(lambda: sos.sos_filter(x, *section), 20),
             "kernel_ms": kernel_ms(lambda: sos.sos_filter(x, *section), "sos_scan_kernel"),
+            "grid": sos.LAST_GRID,
             "plain_ms": cuda_ms(lambda: sos.sos_filter_plain(x, *section), 2),
         })
         batched_cases.append({
             "cutoff": name,
             "ms": cuda_ms(lambda: sos.sos_filter(x8, *section), 10),
             "kernel_ms": kernel_ms(lambda: sos.sos_filter(x8, *section), "sos_scan_kernel", reps=10),
+            "grid": sos.LAST_GRID,
             "plain_ms": cuda_ms(lambda: sos.sos_filter_plain(x8, *section), 1),
         })
         print(f"K3 timed: {name}: {cases[-1]['ms']:.4f} ms a call, {cases[-1]['kernel_ms']:.4f} ms "
@@ -704,13 +725,16 @@ def configs_path(mt, torch, device, cuda_ms, kernel_ms, run_process, bandwidth):
         "max_abs_err_vs_sosfilt_long_double": host_err, "tolerance_vs_sosfilt": SOSFILT_TOL,
         "sosfilt_f64_vs_long_double": sosfilt_f64_err,
         "ms": mean(cases, "ms"), "kernel_ms": mean(cases, "kernel_ms"), "plain_ms": mean(cases, "plain_ms"),
-        **bound(FULL_N), "library_ms": None, "n": FULL_N, "dtype": "float32",
+        **bound(FULL_N),
+        "library_ms": None, "n": FULL_N, "dtype": "float32",
         "shapes": K3_SHAPES, "checked_cases": checked,
         "repeat_abs_errs_f32": repeats[f32], "repeat_rel_errs_f64": repeats[f64], "cases": cases,
+        "launch": launch_numbers("mtpu_sos_info", 0, grid=cases[-1]["grid"]),
         "batched": {"rows": BATCH_ROWS, "n": BUCKET_N, "dtype": "float32",
                     "ms": mean(batched_cases, "ms"), "kernel_ms": mean(batched_cases, "kernel_ms"),
                     "plain_ms": mean(batched_cases, "plain_ms"), **bound(BATCH_ROWS * BUCKET_N),
-                    "library_ms": None, "cases": batched_cases},
+                    "library_ms": None, "cases": batched_cases,
+                    "launch": launch_numbers("mtpu_sos_info", 0, grid=batched_cases[-1]["grid"])},
     }
 
     # process() on a 180 s pair with orders 2/2 and lowess_it=1
@@ -980,6 +1004,7 @@ def main() -> None:
         "library_ms": None,
         "n": FULL_N,
         "shapes": k1_shapes,
+        "launch": launch_numbers("mtpu_envelope_info", 0, window, grid=envelope.LAST_GRID),
     }
     del stereo
     print(f"K1: {k1['ms']:.4f} ms a call, {k1['kernel_ms']:.4f} ms of kernel", flush=True)
@@ -1088,6 +1113,7 @@ def main() -> None:
         "library_ms": None,
         "n": FULL_N,
         "shapes": k2_shapes,
+        "launch": launch_numbers("mtpu_scan_info", 0, grid=scan.LAST_GRID),
         "checked_cases": k2_checked,
         "repeat_errs": repeats,
         "cases": cases,

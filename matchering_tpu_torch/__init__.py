@@ -21,6 +21,7 @@ On CUDA the limiter runs hand-written kernels
 __version__ = "0.1.0"
 __title__ = "matchering_tpu_torch"
 
+from . import ops
 from .checker import check, check_equality
 from .config import Config, LimiterConfig
 from .core import process
@@ -49,6 +50,7 @@ __all__ = [
     "log",
     "master",
     "master_graph",
+    "ops",
     "pcm16",
     "pcm24",
     "pcm32f",

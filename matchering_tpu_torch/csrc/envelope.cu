@@ -58,6 +58,7 @@
 
 #include <cstdint>
 
+#include "info.cuh"
 #include "vec.cuh"
 
 namespace {
@@ -214,7 +215,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int launch(const T* x, T* gain, T* slided, const long long* lengths, long long rows,
-           long long n, double threshold, int window, cudaStream_t stream) {
+           long long n, double threshold, int window, long long* launched, cudaStream_t stream) {
   if (n <= 0 || rows <= 0) return 0;
   if (window < 1 || window - 1 > kMaxHalo || n < window || rows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -229,7 +230,19 @@ int launch(const T* x, T* gain, T* slided, const long long* lengths, long long r
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(rows));
   envelope_kernel<T><<<grid, kThreads, smem, stream>>>(
       x, gain, slided, lengths, n, static_cast<T>(threshold), window);
+  *launched = static_cast<long long>(grid.x) * grid.y;
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int info(int window, long long* out) {
+  const int smem = smem_bytes(window, sizeof(T));
+  if (smem > kStaticSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        envelope_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return kernel_info(envelope_kernel<T>, kThreads, smem, out);
 }
 
 }  // namespace
@@ -240,22 +253,31 @@ int mtpu_envelope_max_halo() { return kMaxHalo; }
 
 int mtpu_envelope_tile() { return kTile; }
 
+// the launch at `window` (csrc/info.cuh): registers, shared memory, resident blocks
+int mtpu_envelope_info(int f64, int window, long long* out) {
+  return f64 ? info<double>(window, out) : info<float>(window, out);
+}
+
 // `lengths`: null, or a device array of `rows` int64 true lengths, each in
-// [window, n] (the wrapper checks its host copy).
+// [window, n] (the wrapper checks its host copy).  `launched`: a host
+// int64 that receives the blocks of the launch (left as it is when there
+// is none).
 int mtpu_envelope_f32(const void* x, void* gain, void* slided, const void* lengths,
                       long long rows, long long n, double threshold, int window,
-                      void* stream) {
+                      void* launched, void* stream) {
   return launch(static_cast<const float*>(x), static_cast<float*>(gain),
                 static_cast<float*>(slided), static_cast<const long long*>(lengths), rows,
-                n, threshold, window, static_cast<cudaStream_t>(stream));
+                n, threshold, window, static_cast<long long*>(launched),
+                static_cast<cudaStream_t>(stream));
 }
 
 int mtpu_envelope_f64(const void* x, void* gain, void* slided, const void* lengths,
                       long long rows, long long n, double threshold, int window,
-                      void* stream) {
+                      void* launched, void* stream) {
   return launch(static_cast<const double*>(x), static_cast<double*>(gain),
                 static_cast<double*>(slided), static_cast<const long long*>(lengths), rows,
-                n, threshold, window, static_cast<cudaStream_t>(stream));
+                n, threshold, window, static_cast<long long*>(launched),
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

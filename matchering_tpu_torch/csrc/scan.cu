@@ -102,6 +102,7 @@
 #include <cstdint>
 #include <cstring>
 
+#include "info.cuh"
 #include "vec.cuh"
 
 namespace {
@@ -323,7 +324,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(sizeof(T)))
 template <typename T>
 int scan(const T* x, T* y, const double* zi, const long long* lengths, long long rows,
          long long n, double b0, double b1, double pole, const double* powers, int reverse,
-         void* scratch, cudaStream_t stream) {
+         void* scratch, long long* launched, cudaStream_t stream) {
   const long long tiles = ceil_div(n, kTile);
   const long long total = rows * tiles;
   if (total > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -334,6 +335,7 @@ int scan(const T* x, T* y, const double* zi, const long long* lengths, long long
   unsigned long long* counter = prefixes + total;
   scan_kernel<T><<<static_cast<unsigned>(total), kThreads, 0, stream>>>(
       x, y, zi, lengths, n, tiles, b0, b1, pole, pw, reverse, aggregates, prefixes, counter);
+  *launched = total;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -347,29 +349,36 @@ int mtpu_scan_tile() { return kTile; }
 
 int mtpu_scan_powers() { return kPowers; }
 
+// the launch (csrc/info.cuh): registers, shared memory, resident blocks
+int mtpu_scan_info(int f64, long long* out) {
+  return f64 ? kernel_info(scan_kernel<double>, kThreads, 0, out)
+             : kernel_info(scan_kernel<float>, kThreads, 0, out);
+}
+
 // `powers`: host array of kPowers float64, pole^(kRun * 2^k).  `scratch`:
 // 2 * rows * ceil(n / kTile) + 1 zeroed 8-byte words (aggregates, inclusive
 // prefixes, tile counter).  `zi`: null, or `rows` float64 states on the
 // device.  `lengths`: null, or `rows` int64 lengths in [1, n] on the device
-// (the wrapper checks its host copy).
+// (the wrapper checks its host copy).  `launched`: a host int64 that
+// receives the blocks of the launch (left as it is when there is none).
 int mtpu_scan_f32(const void* x, void* y, const void* zi, const void* lengths, long long rows,
                   long long n, double b0, double b1, double a1, int reverse,
-                  const void* powers, void* scratch, void* stream) {
+                  const void* powers, void* scratch, void* launched, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
   return scan(static_cast<const float*>(x), static_cast<float*>(y),
               static_cast<const double*>(zi), static_cast<const long long*>(lengths), rows,
               n, b0, b1, -a1, static_cast<const double*>(powers), reverse, scratch,
-              static_cast<cudaStream_t>(stream));
+              static_cast<long long*>(launched), static_cast<cudaStream_t>(stream));
 }
 
 int mtpu_scan_f64(const void* x, void* y, const void* zi, const void* lengths, long long rows,
                   long long n, double b0, double b1, double a1, int reverse,
-                  const void* powers, void* scratch, void* stream) {
+                  const void* powers, void* scratch, void* launched, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
   return scan(static_cast<const double*>(x), static_cast<double*>(y),
               static_cast<const double*>(zi), static_cast<const long long*>(lengths), rows,
               n, b0, b1, -a1, static_cast<const double*>(powers), reverse, scratch,
-              static_cast<cudaStream_t>(stream));
+              static_cast<long long*>(launched), static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

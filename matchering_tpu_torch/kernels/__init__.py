@@ -7,5 +7,5 @@
 Each wrapper runs its plain twin for a CPU tensor and launches its kernel
 for a CUDA tensor, raising if it cannot; it never falls back from one to
 the other.  Each keeps a launch count, ``LAUNCHES``, raised by one per call
-that launches the kernel.
+that launches the kernel, and ``LAST_GRID``, the blocks of that launch.
 """

@@ -42,18 +42,24 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mtpu_envelope_max_halo": (_I, []),
     "mtpu_envelope_tile": (_I, []),
-    "mtpu_envelope_f32": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _I, _P]),
-    "mtpu_envelope_f64": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _I, _P]),
+    "mtpu_envelope_f32": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _I, _P, _P]),
+    "mtpu_envelope_f64": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _I, _P, _P]),
     "mtpu_scan_run": (_I, []),
     "mtpu_scan_tile": (_I, []),
     "mtpu_scan_powers": (_I, []),
-    "mtpu_scan_f32": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P]),
-    "mtpu_scan_f64": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P]),
+    "mtpu_scan_f32": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P, _P]),
+    "mtpu_scan_f64": (_I, [_P, _P, _P, _P, _LL, _LL, _D, _D, _D, _I, _P, _P, _P, _P]),
     "mtpu_sos_run": (_I, []),
     "mtpu_sos_tile": (_I, []),
-    "mtpu_sos_powers": (_I, []),
-    "mtpu_sos_f32": (_I, [_P, _P, _LL, _LL, _D, _D, _D, _D, _D, _P, _P, _P]),
-    "mtpu_sos_f64": (_I, [_P, _P, _LL, _LL, _D, _D, _D, _D, _D, _P, _P, _P]),
+    "mtpu_sos_stages": (_I, []),
+    "mtpu_sos_table_doubles": (_I, []),
+    "mtpu_sos_shared_head": (_I, []),
+    "mtpu_sos_f32": (_I, [_P, _P, _LL, _LL, _D, _D, _D, _D, _D, _P, _LL, _P, _P]),
+    "mtpu_sos_f64": (_I, [_P, _P, _LL, _LL, _D, _D, _D, _D, _D, _P, _LL, _P, _P]),
+    # each kernel's launch: registers, shared memory, resident blocks (csrc/info.cuh)
+    "mtpu_envelope_info": (_I, [_I, _I, _P]),
+    "mtpu_scan_info": (_I, [_I, _P]),
+    "mtpu_sos_info": (_I, [_I, _P]),
 }
 
 # C constants the Python wrappers mirror: C function -> (module, attribute)
@@ -65,7 +71,9 @@ _CONSTANTS = {
     "mtpu_scan_powers": ("scan", "POWERS"),
     "mtpu_sos_run": ("sos", "RUN"),
     "mtpu_sos_tile": ("sos", "TILE"),
-    "mtpu_sos_powers": ("sos", "POWERS"),
+    "mtpu_sos_stages": ("sos", "STAGES"),
+    "mtpu_sos_table_doubles": ("sos", "TABLE_DOUBLES"),
+    "mtpu_sos_shared_head": ("sos", "SHARED_HEAD"),
 }
 
 _library = None  # the loaded ctypes.CDLL, once built

@@ -10,6 +10,7 @@ each row's true length (``matchering_tpu/limiter.py:124-130`` and
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -19,6 +20,7 @@ from ..utils import RowInts, make_odd
 from . import build
 
 LAUNCHES = 0  # calls that launched the CUDA kernel
+LAST_GRID = 0  # blocks of the last launch, as the kernel's launcher reports them
 
 # the kernel's tiling (csrc/envelope.cu: kRun, kTile, kMaxHalo)
 RUN = 32  # outputs per thread
@@ -82,16 +84,18 @@ def limiter_front_end(
     lengths_ptr = build.lengths_pointer(lengths, rows, n, window, array.device)
     lib = build.library()
 
-    global LAUNCHES
+    global LAUNCHES, LAST_GRID
     gain = torch.empty(array.shape[:-1], dtype=array.dtype, device=array.device)
     slided = torch.empty_like(gain)
+    launched = (ctypes.c_longlong * 1)()
     fn = lib.mtpu_envelope_f32 if array.dtype == torch.float32 else lib.mtpu_envelope_f64
     with torch.cuda.device(array.device):
         stream = torch.cuda.current_stream(array.device).cuda_stream
         status = fn(
             array.data_ptr(), gain.data_ptr(), slided.data_ptr(), lengths_ptr, rows, n,
-            float(threshold), window, stream,
+            float(threshold), window, launched, stream,
         )
     build.check(status, "envelope kernel")
     LAUNCHES += 1
+    LAST_GRID = launched[0]
     return gain, slided

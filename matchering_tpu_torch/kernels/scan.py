@@ -21,6 +21,7 @@ from ..utils import RowInts
 from . import build
 
 LAUNCHES = 0  # calls that launched the CUDA kernel
+LAST_GRID = 0  # blocks of the last launch, as the kernel's launcher reports them
 
 # the kernel's tiling (csrc/scan.cu: kRun, kTileLog, kTile, kPowers)
 RUN = 16  # consecutive scan positions per thread
@@ -160,18 +161,20 @@ def first_order_filter(
             raise ValueError(f"zi holds {zi.shape[0]} states for {rows} rows")
         zi_ptr = zi.data_ptr()
 
-    global LAUNCHES
+    global LAUNCHES, LAST_GRID
     lib = build.library()
     y = torch.empty_like(x)
     scratch = torch.zeros(scratch_words(rows, n), dtype=torch.int64, device=x.device)
     powers = _powers_array(-float(a1))
+    launched = (ctypes.c_longlong * 1)()
     fn = lib.mtpu_scan_f32 if x.dtype == torch.float32 else lib.mtpu_scan_f64
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = fn(
             x.data_ptr(), y.data_ptr(), zi_ptr, lengths_ptr, rows, n, float(b0), float(b1),
-            float(a1), int(reverse), ctypes.addressof(powers), scratch.data_ptr(), stream,
+            float(a1), int(reverse), ctypes.addressof(powers), scratch.data_ptr(), launched, stream,
         )
     build.check(status, "scan kernel")
     LAUNCHES += 1
+    LAST_GRID = launched[0]
     return y

@@ -38,15 +38,32 @@ import torch
 from . import build
 
 LAUNCHES = 0  # calls that launched the CUDA kernel
+LAST_GRID = 0  # blocks of the last launch, the grid passed to its launcher
 
-# the kernel's tiling (csrc/sos_scan.cu: kRun, kTileLog, kTile, kPowers)
-RUN = 16  # consecutive samples per thread
-TILE_LOG = 8  # 2**TILE_LOG threads per block
-TILE = RUN << TILE_LOG  # samples per block
-# A**(RUN * 2**k) for k < POWERS: the thread shuffles (k < 5), the warps
-# (5 <= k < TILE_LOG) and the look-back's distances of 2**(k - TILE_LOG)
-# tiles (every bit of a tile index below 2**31)
-POWERS = TILE_LOG + 31
+# the kernel's geometry (csrc/sos_scan.cu: kRun, kThreads, kTile, kLaneStates,
+# kChunk, kDepth, kWindow, kStages, kTableDoubles, kRingOffset)
+RUN = 32  # consecutive samples per thread
+THREADS = 128
+TILE = RUN * THREADS  # samples per tile
+LANE_STATES = THREADS // 32  # threads' end states per lane of warp 0
+CHUNK = RUN * LANE_STATES  # samples per lane of warp 0
+WARPS = THREADS // 32
+DEPTH = 5  # tiles a thread reads in a look-back step
+WINDOW = DEPTH * THREADS  # tiles a look-back step covers
+STAGES = 2  # tile buffers in a block's ring
+# powers A**e in the kernel's table, in its order: the thread spans, the
+# lanes' chunks, the look-back distances (0 to THREADS - 1 tiles), a hop of
+# THREADS tiles and a look-back step of WINDOW tiles
+TABLE_EXPONENTS = (
+    tuple(RUN * k for k in range(1, LANE_STATES))
+    + tuple(CHUNK * (lane + 1) for lane in range(32))
+    + tuple(TILE * d for d in range(THREADS))
+    + (THREADS * TILE, WINDOW * TILE)
+)
+TABLE_DOUBLES = 8 * len(TABLE_EXPONENTS)
+# shared memory before the ring: the tables, four states per thread and a
+# state and a stop per warp, rounded up to 128 bytes
+SHARED_HEAD = -(-(8 * TABLE_DOUBLES + 4 * 16 * THREADS + 20 * WARPS) // 128) * 128
 
 _PLAIN_BLOCK = 256
 _DIGITS = 50  # decimal digits of the host's matrix powers
@@ -55,11 +72,37 @@ _SPLIT = 134217729.0  # 2**27 + 1: Dekker's split of a float64 into two halves
 Matrix = Tuple[Tuple[decimal.Decimal, decimal.Decimal], Tuple[decimal.Decimal, decimal.Decimal]]
 
 
-def scratch_words(rows: int, n: int) -> int:
+def tiles_per_row(n: int, itemsize: int) -> int:
+    """Tiles of a row of n samples: a row whose start is off a 16-byte
+    boundary (n not a multiple of the samples in 16 bytes) is scanned from
+    the boundary before it, so it may reach into one more tile."""
+    per_vector = 16 // itemsize
+    return -(-(n + (per_vector - 1 if n % per_vector else 0)) // TILE)
+
+
+def tile_span(row: int, tile: int, n: int, itemsize: int) -> Tuple[int, int, int]:
+    """Tile ``tile`` of row ``row`` as the kernel cuts it: the element
+    offset of its first position (a multiple of the samples in 16 bytes,
+    before the row start by the row's misalignment in its first tile) and
+    its samples of the row, [first, end) counted from there."""
+    origin = tile * TILE - (row * n) % (16 // itemsize)
+    return row * n + origin, max(0, -origin), min(TILE, n - origin)
+
+
+def scratch_words(rows: int, n: int, itemsize: int) -> int:
     """8-byte words of zeroed scratch a call over (rows, n) needs: an
-    aggregate pair and an inclusive-prefix pair per (row, tile of TILE
-    samples), and a tile counter."""
-    return 4 * rows * -(-n // TILE) + 1
+    aggregate pair and an inclusive-prefix pair per (row, tile)."""
+    return 4 * rows * tiles_per_row(n, itemsize)
+
+
+def grid_size(rows: int, n: int, itemsize: int, resident_blocks: int, sms: int) -> int:
+    """Blocks of a launch: as many as are resident at once on the card
+    (``resident_blocks`` per SM, from the occupancy query; the launch is
+    cooperative and needs them all resident), and no more than there are
+    tiles."""
+    if resident_blocks < 1:
+        raise RuntimeError("the sos scan kernel cannot be resident on this card")
+    return min(resident_blocks * sms, rows * tiles_per_row(n, itemsize))
 
 
 def _mul(a: Matrix, b: Matrix) -> Matrix:
@@ -103,26 +146,35 @@ def _hi_lo(m: Matrix) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
 
 
 @functools.lru_cache(maxsize=64)
-def section_powers(a1: float, a2: float) -> Tuple[float, ...]:
-    """``A**(RUN * 2**k)`` for k < POWERS as the kernel takes them: per
-    power the four row-major entries rounded to float64 (hi), then the
-    four roundings of what hi leaves (lo)."""
+def section_tables(a1: float, a2: float) -> Tuple[float, ...]:
+    """The kernel's table (csrc/sos_scan.cu, ``Tables``): for each
+    exponent e of TABLE_EXPONENTS, A**e as its four row-major entries
+    rounded to float64 (hi) and the four roundings of what hi leaves (lo),
+    each power at 50 digits."""
     out = []
     with decimal.localcontext(_context()):
-        m = _power(a1, a2, RUN)
-        for _ in range(POWERS):
-            hi, lo = _hi_lo(m)
+        for exponent in TABLE_EXPONENTS:
+            hi, lo = _hi_lo(_power(a1, a2, exponent))
             out.extend(hi + lo)
-            m = _mul(m, m)
     return tuple(out)
 
 
 @functools.lru_cache(maxsize=64)
-def _powers_array(a1: float, a2: float):
-    """``section_powers`` as the C array the kernel's entry point copies
-    from (read on the host before the launch returns, so one can be shared)."""
-    values = section_powers(a1, a2)
-    return (ctypes.c_double * len(values))(*values)
+def device_tables(a1: float, a2: float, device: torch.device) -> torch.Tensor:
+    """``section_tables`` on ``device``, staged once per section and device
+    through pinned memory without a host sync."""
+    host = torch.tensor(section_tables(a1, a2), dtype=torch.float64)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=16)
+def resident_blocks(device: torch.device, dtype: torch.dtype) -> int:
+    """Blocks of the kernel resident per SM on ``device`` (the occupancy
+    query of ``mtpu_sos_info``)."""
+    out = (ctypes.c_longlong * 6)()
+    with torch.cuda.device(device):
+        build.check(build.library().mtpu_sos_info(int(dtype == torch.float64), out), "sos scan info")
+    return int(out[3])
 
 
 @functools.lru_cache(maxsize=64)
@@ -258,18 +310,24 @@ def sos_filter(
     n = x.shape[-1]
     rows = 1 if x.ndim == 1 else x.shape[0]
 
-    global LAUNCHES
+    global LAUNCHES, LAST_GRID
     lib = build.library()
+    if x.data_ptr() % 16:  # the kernel reads and writes from 16-byte boundaries
+        x = x.clone()
     y = torch.empty_like(x)
-    scratch = torch.zeros(scratch_words(rows, n), dtype=torch.int64, device=x.device)
-    powers = _powers_array(float(a1), float(a2))
+    itemsize = x.element_size()
+    scratch = torch.zeros(scratch_words(rows, n, itemsize), dtype=torch.int64, device=x.device)
+    tables = device_tables(float(a1), float(a2), x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = grid_size(rows, n, itemsize, resident_blocks(x.device, x.dtype), sms)
     fn = lib.mtpu_sos_f32 if x.dtype == torch.float32 else lib.mtpu_sos_f64
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = fn(
             x.data_ptr(), y.data_ptr(), rows, n, float(b0), float(b1), float(b2), float(a1),
-            float(a2), ctypes.addressof(powers), scratch.data_ptr(), stream,
+            float(a2), tables.data_ptr(), grid, scratch.data_ptr(), stream,
         )
     build.check(status, "sos scan kernel")
     LAUNCHES += 1
+    LAST_GRID = grid
     return y

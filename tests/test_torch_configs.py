@@ -25,6 +25,7 @@ References and tolerances:
   ``chip_smoke.py`` holds the kernel to on the card.
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -93,66 +94,134 @@ def test_sos_twin_float32_io_keeps_float64_state(rng, cutoff):
 
 @pytest.mark.parametrize("cutoff", sorted(CUTOFFS))
 def test_section_powers_are_exact_to_32_digits(cutoff):
-    """Each A**(RUN * 2**k) the kernel takes is hi + lo: hi the float64
-    rounding of the exact power, lo the rounding of what hi leaves."""
+    """Each power in the kernel's table (thread spans, lane chunks,
+    look-back distances, hop and step) is hi + lo: hi the float64 rounding
+    of the exact power, lo the rounding of what hi leaves."""
     import decimal
 
     (section,) = iir.butter_sos(2, CUTOFFS[cutoff], FS)
-    table = np.array(sos.section_powers(section.a1, section.a2)).reshape(sos.POWERS, 8)
-    assert table.shape == (sos.TILE_LOG + 31, 8)
+    table = np.array(sos.section_tables(section.a1, section.a2))
+    assert table.shape == (sos.TABLE_DOUBLES,)
+    count = len(sos.TABLE_EXPONENTS)
+    assert count == sos.LANE_STATES - 1 + 32 + sos.THREADS + 2
+    powers = table.reshape(count, 8)
     checked = 0
     with decimal.localcontext() as context:
         context.prec = 100
-        for k in range(sos.POWERS):
-            exact = sos._power(section.a1, section.a2, sos.RUN << k)
+        for exponent, entry in zip(sos.TABLE_EXPONENTS, powers):
+            exact = sos._power(section.a1, section.a2, exponent)
             flat = [v for row in exact for v in row]
-            np.testing.assert_array_equal(table[k, :4], [float(v) for v in flat])
+            np.testing.assert_array_equal(entry[:4], [float(v) for v in flat])
             scale = max(abs(v) for v in flat)
             if scale < decimal.Decimal("1e-300"):  # decayed below float64's range
                 continue
-            for v, hi, lo in zip(flat, table[k, :4], table[k, 4:]):
+            for v, hi, lo in zip(flat, entry[:4], entry[4:]):
                 assert abs(v - decimal.Decimal(hi) - decimal.Decimal(lo)) <= scale * decimal.Decimal("1e-30")
             checked += 1
-    assert checked >= 16
+    assert checked >= 40
+    assert sos.TABLE_EXPONENTS[: sos.LANE_STATES - 1] == (32, 64, 96)
+    assert sos.TABLE_EXPONENTS[-2:] == (sos.THREADS * sos.TILE, sos.WINDOW * sos.TILE)
 
 
 @pytest.mark.parametrize("rows", [1, 3])
 def test_sos_scratch_words(rows):
-    for n, tiles in [(1, 1), (4096, 1), (4097, 2), (7_938_000, 1938)]:
-        assert sos.scratch_words(rows, n) == 4 * rows * tiles + 1
-    assert (sos.RUN, sos.TILE) == (16, 4096)
+    """An aggregate pair and a prefix pair per (row, tile); a row off a
+    16-byte boundary may reach into one more tile."""
+    for n, itemsize, tiles in [(1, 4, 1), (4096, 4, 1), (4096, 8, 1), (4097, 4, 2), (4093, 4, 1),
+                               (4094, 4, 2), (4095, 8, 1), (4097, 8, 2), (7_938_000, 4, 1938), (31 << 18, 4, 1984)]:
+        assert sos.tiles_per_row(n, itemsize) == tiles
+        assert sos.scratch_words(rows, n, itemsize) == 4 * rows * tiles
+    assert (sos.RUN, sos.THREADS, sos.TILE, sos.CHUNK) == (32, 128, 4096, 128)
 
 
-def _sos_model(x, section):
-    """csrc/sos_scan.cu's arithmetic for one row, tile by tile, in float64
-    torch ops on the CPU: runs scanned from zero, the warp-shuffle and warp
-    scans through ``sos.affine`` with the kernel's table, look-back over
-    every earlier tile's aggregate (the longest walk: A^(TILE d) applied one
-    bit of d at a time, summed 32 tiles at a time), then each run rescanned
-    from its carried-in state."""
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n", [1, 5, 4093, 4097, 3 * 4096 + 5, 7_938_001])
+def test_sos_tiles_cover_each_row_from_aligned_starts(n, itemsize):
+    """Every tile starts on a 16-byte boundary (a row off one begins its
+    first tile before the row), and the tiles of each row cover it once,
+    in order, with whole 16-byte chunks in between."""
+    per_vector = 16 // itemsize
+    tiles = sos.tiles_per_row(n, itemsize)
+    for row in range(5):
+        covered = 0
+        for b in range(tiles):
+            start, first, end = sos.tile_span(row, b, n, itemsize)
+            assert start % per_vector == 0
+            assert start + first == row * n + covered or first >= end
+            if b == 0:
+                assert first == (row * n) % per_vector
+            else:
+                assert first == 0
+            covered += max(0, end - first)
+        assert covered == n
+        # the last tile holds a sample, or is the one a shifted row does not reach
+        start, first, end = sos.tile_span(row, tiles - 1, n, itemsize)
+        assert end > first or (n % per_vector and (row * n) % per_vector == 0)
+
+
+def test_sos_ring_and_grid(monkeypatch):
+    """A block's ring of STAGES tiles and its head fit an SM four times in
+    float32 and twice in float64, the look-back's window reaches past the
+    grid's blocks, and the grid is the resident blocks, no more than the
+    tiles (the occupancy query stubbed)."""
+    assert sos.STAGES == 2
+    assert sos.SHARED_HEAD % 128 == 0 and sos.SHARED_HEAD >= 8 * sos.TABLE_DOUBLES
+    assert sos.WINDOW >= 4 * 132  # an H100's resident float32 blocks: one look-back step
+    for itemsize, blocks in ((4, 4), (8, 2)):
+        dynamic = sos.SHARED_HEAD + sos.STAGES * sos.TILE * itemsize  # csrc/sos_scan.cu: shared_bytes
+        assert dynamic <= 227 * 1024
+        assert 228 * 1024 // (dynamic + 1024) == blocks  # an H100 SM, 1 KB reserved per block
+    assert sos.grid_size(1, 7_938_000, 4, 3, 132) == 396
+    assert sos.grid_size(8, 31 << 18, 4, 3, 132) == 396
+    assert sos.grid_size(1, 5000, 4, 3, 132) == 2
+    assert sos.grid_size(3, 1, 8, 2, 132) == 3
+    with pytest.raises(RuntimeError, match="resident"):
+        sos.grid_size(1, 5000, 4, 0, 132)
+
+    class Library:
+        def mtpu_sos_info(self, f64, out):
+            out[3] = 2 if f64 else 3
+            return 0
+
+    monkeypatch.setattr(sos.build, "library", lambda: Library())
+    monkeypatch.setattr(sos.torch.cuda, "device", lambda device: contextlib.nullcontext())
+    sos.resident_blocks.cache_clear()
+    try:
+        assert sos.resident_blocks("cuda:0", torch.float32) == 3
+        assert sos.resident_blocks("cuda:0", torch.float64) == 2
+    finally:
+        sos.resident_blocks.cache_clear()
+
+
+def _sos_model(x, section, shift=0):
+    """csrc/sos_scan.cu's arithmetic for one row that starts ``shift``
+    samples past a 16-byte boundary, tile by tile, in float64 torch ops on
+    the CPU: the runs scanned from zero, warp 0's chains, lane scan, lane
+    ends and thread entries through ``sos.affine`` with the kernel's table,
+    look-back over every earlier tile's aggregate (the longest walk: steps
+    of WINDOW tiles, thread t's DEPTH tiles combined Horner-wise with
+    A^(THREADS TILE), then A^(TILE t), each step then A^(WINDOW TILE) once
+    per step), and each run rescanned from the state entering it."""
     b0, b1, b2, a1, a2 = section
-    run, tile = sos.RUN, sos.TILE
+    run, tile, states = sos.RUN, sos.TILE, sos.LANE_STATES
     threads = tile // run
-    table = torch.tensor(sos.section_powers(a1, a2), dtype=torch.float64).reshape(sos.POWERS, 2, 4)
+    count = len(sos.TABLE_EXPONENTS)
+    table = torch.tensor(sos.section_tables(a1, a2), dtype=torch.float64).reshape(count, 2, 4)
     hi, lo = table[:, 0].reshape(-1, 2, 2), table[:, 1].reshape(-1, 2, 2)
+    lane_at, distance_at = states - 1, states - 1 + 32
+    hop_at, step_at = distance_at + threads, distance_at + threads + 1
     c1, c2 = b1 - a1 * b0, b2 - a2 * b0
+    zero = torch.zeros(2, dtype=torch.float64)
 
-    def apply_power(first, bits, e, v):
-        e = torch.as_tensor(e)
-        for k in range(bits):
-            take = ((e >> k) & 1).bool()[..., None]
-            v = torch.where(take, sos.affine(hi[first + k], lo[first + k], v, torch.zeros_like(v)), v)
-        return v
+    def combine(i, v, add):
+        return sos.affine(hi[i], lo[i], v, add)
 
-    def step(s, xi):
-        return torch.stack([s[..., 1] - a1 * s[..., 0] + c1 * xi, c2 * xi - a2 * s[..., 0]], -1)
-
-    def shift(v, d):
+    def shift_lanes(v, d):
         out = torch.zeros_like(v)
-        out[..., d:, :] = v[..., :-d, :]
+        out[d:] = v[:-d]
         return out
 
-    x = torch.as_tensor(x, dtype=torch.float64)
+    x = torch.cat([torch.zeros(shift, dtype=torch.float64), torch.as_tensor(x, dtype=torch.float64)])
     n = x.shape[0]
     y = torch.empty(n, dtype=torch.float64)
     lanes = torch.arange(32)
@@ -162,43 +231,57 @@ def _sos_model(x, section):
         runs = torch.zeros(tile, dtype=torch.float64)
         runs[: len(part)] = part
         runs = runs.reshape(threads, run)
-        s = torch.zeros(threads, 2, dtype=torch.float64)
-        for r in range(run):
-            s = step(s, runs[:, r])
-        inclusive = s.reshape(-1, 32, 2)
+        def scan(s, out=None):
+            for r in range(run):
+                xi = runs[:, r]
+                if out is not None:
+                    out[:, r] = b0 * xi + s[:, 0]
+                s = torch.stack([(c1 * xi + s[:, 1]) - a1 * s[:, 0], c2 * xi - a2 * s[:, 0]], -1)
+            return s
+
+        s = scan(torch.zeros(threads, 2, dtype=torch.float64))
+        ends = s.reshape(32, states, 2)
+        chain = [ends[:, 0]]
+        for k in range(1, states):
+            chain.append(combine(0, chain[-1], ends[:, k]))
+        g = chain[-1]
         for k in range(5):
             d = 1 << k
-            combined = sos.affine(hi[k], lo[k], shift(inclusive, d), inclusive)
-            inclusive = torch.where((lanes >= d)[:, None], combined, inclusive)
-        exclusive = shift(inclusive, 1)
-        w = inclusive[:, 31]
-        warps = torch.arange(w.shape[0])
-        for k in range(sos.TILE_LOG - 5):
-            d = 1 << k
-            combined = sos.affine(hi[5 + k], lo[5 + k], shift(w, d), w)
-            w = torch.where((warps >= d)[:, None], combined, w)
-        carry = torch.zeros(2, dtype=torch.float64)
+            g = torch.where((lanes >= d)[:, None], combine(lane_at + d - 1, shift_lanes(g, d), g), g)
+        carry = zero
         if b > 0:
-            terms = apply_power(sos.TILE_LOG, 31, torch.arange(b), torch.stack(aggregates[::-1]))
-            carry = sum(terms[i : i + 32].sum(0) for i in range(0, b, 32))
-        aggregates.append(w[-1])
-        warp_entry = shift(w, 1) + apply_power(5, sos.TILE_LOG - 5, warps, carry.expand(len(warps), 2))
-        entry = exclusive + apply_power(0, 5, lanes, warp_entry[:, None, :].expand(-1, 32, 2))
-        state_ = entry.reshape(-1, 2)
+            for m, last in enumerate(range(b - 1, -1, -sos.WINDOW)):
+                # thread t: tiles last - t - THREADS k, the farthest first
+                window = aggregates[max(0, last - sos.WINDOW + 1) : last + 1][::-1]
+                window = window + [zero] * (sos.WINDOW - len(window))
+                values = torch.stack(window).reshape(sos.DEPTH, threads, 2)
+                acc = values[-1]
+                for k in range(sos.DEPTH - 2, -1, -1):
+                    acc = combine(hop_at, acc, values[k])
+                term = combine(slice(distance_at, distance_at + threads), acc, torch.zeros_like(acc)).sum(0)
+                for _ in range(m):
+                    term = combine(step_at, term, zero)
+                carry = carry + term
+        aggregates.append(g[31])
+        f = g if b == 0 else combine(slice(lane_at, lane_at + 32), carry.expand(32, 2), g)
+        enter = shift_lanes(f, 1)
+        enter[0] = carry
+        entry = [enter] + [combine(k - 1, enter, chain[k - 1]) for k in range(1, states)]
         out = torch.empty(threads, run, dtype=torch.float64)
-        for r in range(run):
-            out[:, r] = b0 * runs[:, r] + state_[:, 0]
-            state_ = step(state_, runs[:, r])
+        scan(torch.stack(entry, 1).reshape(threads, 2), out)
         y[b * tile : (b + 1) * tile] = out.reshape(-1)[: len(part)]
-    return y.numpy()
+    return y[shift:].numpy()
 
 
-@pytest.mark.parametrize("n", [1, 4095, 3 * 4096 + 5, 40 * 4096 + 7])
+@pytest.mark.parametrize(
+    "n, shift",
+    [(1, 0), (1, 3), (4095, 0), (4095, 3), (3 * 4096 + 5, 0), (3 * 4096 + 5, 3), (660 * 4096 + 7, 3)],
+)
 @pytest.mark.parametrize("cutoff", sorted(CUTOFFS))
-def test_sos_kernel_decomposition(rng, cutoff, n):
+def test_sos_kernel_decomposition(rng, cutoff, n, shift):
     (section,) = iir.butter_sos(2, CUTOFFS[cutoff], FS)
     x = rng.rand(n)
-    got = _sos_model(x, section)
+    got = _sos_model(x, section, shift)
     twin = sos.sos_filter(t(x), *section).numpy()
     assert np.max(np.abs(got - sosfilt_ld(rows_of([section]), x))) <= FILTER_TOL
     rel = np.abs(got - twin) / np.maximum(np.abs(twin), 1e-300)

@@ -13,6 +13,7 @@ are checked to import without ``nvcc`` and to raise, never fall back to the
 twin, when asked to launch without a kernel library.
 """
 
+import re
 from unittest import mock
 
 import jax.numpy as jnp
@@ -180,6 +181,20 @@ class TestKernelWrappers:
         lib.mtpu_scan_tile.return_value = 2 * scan.TILE
         with pytest.raises(RuntimeError, match="scan.TILE"):
             build.library()
+
+    def test_c_entry_points_match_the_signatures(self):
+        """Every C entry point the wrappers bind takes the parameters, in
+        number and kind, that ``build._SIGNATURES`` declares for ctypes."""
+        text = "".join(open(path).read() for path in build.sources((".cu", ".cuh")))
+        kinds = {"int": build._I, "long long": build._LL, "double": build._D}
+        for name, (restype, argtypes) in build._SIGNATURES.items():
+            found = re.findall(rf"\bint {name}\(([^)]*)\)", text)
+            assert len(found) == 1, name
+            params = [p.split() for p in found[0].split(",") if p.strip()]
+            declared = [
+                build._P if "*" in "".join(words) else kinds[" ".join(words[:-1])] for words in params
+            ]
+            assert (restype, declared) == (build._I, argtypes), name
 
 
 class TestKernelTiling:

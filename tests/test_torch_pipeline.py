@@ -186,6 +186,24 @@ def test_import_loads_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, cwd=repo, timeout=120)
 
 
+def test_star_import_binds_the_ports_ops_without_jax():
+    """``ops`` is on the top-level surface, as in the JAX package, and is
+    the port's own."""
+    code = (
+        "import sys\n"
+        "from matchering_tpu_torch import *\n"
+        "import matchering_tpu_torch.ops.iir as port_iir\n"
+        "assert ops.iir.butter_lowpass is port_iir.butter_lowpass\n"
+        "assert ops.__name__ == 'matchering_tpu_torch.ops'\n"
+        "assert sorted(ops.__all__) == ['basics', 'convolve', 'fir', 'iir', 'lowess', 'resample', "
+        "'sliding', 'smoothing', 'spectrum']\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'matchering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=repo, timeout=120)
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """Without CUDA (or without the package beside it) the smoke script
     exits non-zero and prints no result line."""
