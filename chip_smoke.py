@@ -76,11 +76,26 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    pairs; and
    ``master_batch`` of that config on three rows (>= 95 dB per row), its
    dynamic graph run under ``torch.cuda.set_sync_debug_mode("error")``;
-9. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
-   kernel's batched numbers from phases 3, 7 and 8, and each launch's
-   registers, shared memory and resident blocks per SM from the kernels'
-   info queries, beside the grid its wrapper recorded for the timed
-   launches), then, last, the device line ``{"ok": true, "device": {...}}``.
+9. the time-sharded path (``parallel/timeshard.py``), all shards on this
+   one card: ``limit_sharded`` over four shards against ``limit`` on the
+   main path's limiter input (phase 4's pair mastered without the
+   limiter), in float32 (one float32 ulp at 1.0) and float64 (1e-12
+   relative), with its launches per call (1 K1 and 8 K2) and a call timed
+   beside ``limit``'s; the long form: a 60-min 96 kHz target and a 200 s
+   reference built on the card from the seed, ``master()`` cold and warm
+   and ``master_sharded`` over two shards cold and warm, each with its
+   wall time, realtime factor and peak device memory, the two results
+   >= 95 dB apart; ``master_farm`` over a (pairs=2, time=2) mesh of the
+   card on two of phase 7's jobs with their true lengths, each row >= 95 dB
+   against ``master`` and 0 past its length; and ``python3 -m
+   matchering_tpu_torch --time_sharded`` on phase 4's pair, its PCM_16
+   file within one LSB of phase 4's;
+10. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+   kernel's batched numbers from phases 3, 7 and 8, its launches in one
+   sharded ``limit()`` (phase 9), and each launch's registers, shared
+   memory and resident blocks per SM from the kernels' info queries,
+   beside the grid its wrapper recorded for the timed launches), then,
+   last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code and no device line.
 It imports nothing of JAX or ``matchering_tpu``.
@@ -118,6 +133,12 @@ FARM_JOBS = 8
 BATCH_SNR_SECONDS = (20, 30)  # the card-vs-CPU master_batch rows
 K3_SHAPES = [1, 2, 255, 256, 257, 3 * 256 + 5, 4095, 4096, 4097, 3 * 4096 + 5, 200_000]
 CUTOFFS = {"hold": 7.0, "release": 800.0 / 3000.0}  # LimiterConfig()'s Butterworth cutoffs
+LIMIT_SHARDS = 4  # phase 9: limit_sharded over four shards of one card
+LONG_SECONDS = 3600  # phase 9: the long form, the JAX README's 60-min 96 kHz master
+LONG_RATE = 96000
+LONG_REFERENCE_SECONDS = 200
+LONG_SHARDS = 2
+SHARDED_LAUNCHES = (1, 8, 0)  # (K1, K2, K3) of one sharded limit() per card (parallel/timeshard.py)
 # H100 peaks (NVIDIA data sheet, SXM part; the PCIe part is slower)
 HBM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
 F32_FLOPS = 67e12  # float32 outside the tensor cores
@@ -438,8 +459,7 @@ def farm_path(mt, torch, device, config, recorder):
     from matchering_tpu_torch.utils import RowInts
 
     rng = np.random.RandomState(SEED + 5)
-    t_seconds = rng.uniform(150, 180, FARM_JOBS)
-    r_seconds = rng.uniform(140, 180, FARM_JOBS)
+    t_seconds, r_seconds = farm_seconds(rng)
     numbers = {"jobs": FARM_JOBS, "target_seconds": t_seconds.tolist(),
                "reference_seconds": r_seconds.tolist(), "bucket": BUCKET}
     audio_seconds = float(np.sum(np.floor(t_seconds * SR))) / SR
@@ -585,6 +605,202 @@ def farm_path(mt, torch, device, config, recorder):
     numbers["master_batch_snr_db_f32_card_vs_f64_cpu"] = snrs
     numbers["master_batch_snr_seconds"] = seconds.tolist()
     return numbers
+
+
+def card_track(torch, device, seconds, sr, seed, role, chunk=1 << 24):
+    """One track of ``make_pair`` built on the card in chunks (float64
+    phases, float32 samples, the noise from a generator seeded with
+    ``seed``): a 60-min 96 kHz pair in float64 on the host would take
+    over 10 GB.  ``role``: "target" or "reference"."""
+    n = int(seconds * sr)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    track = torch.empty((n, 2), dtype=torch.float32, device=device)
+    two_pi = 2 * np.pi
+    for start in range(0, n, chunk):
+        t = torch.arange(start, min(start + chunk, n), dtype=torch.float64, device=device) / sr
+        env = 0.6 + 0.4 * torch.sin(two_pi * t * 0.25) ** 2
+        noise = 0.05 * torch.randn((2, t.shape[0]), generator=gen, dtype=torch.float64, device=device)
+        if role == "target":
+            left = 0.4 * torch.sin(two_pi * 220 * t)
+            right = 0.38 * torch.sin(two_pi * 221 * t)
+        else:
+            left = right = 0.7 * torch.sign(torch.sin(two_pi * 110 * t))
+        track[start:start + t.shape[0], 0] = (left + noise[0]) * env
+        track[start:start + t.shape[0], 1] = (right + noise[1]) * env
+    return track
+
+
+def card_snr_db(torch, reference, test, chunk=1 << 24) -> float:
+    """SNR of ``test`` against ``reference`` on the card, in float64 over
+    chunks; one value read back."""
+    signal = torch.zeros((), dtype=torch.float64, device=reference.device)
+    error = torch.zeros_like(signal)
+    for start in range(0, reference.shape[0], chunk):
+        a = reference[start:start + chunk].double()
+        e = a - test[start:start + chunk].double()
+        signal += torch.sum(a * a)
+        error += torch.sum(e * e)
+    return float(10.0 * torch.log10(signal / error))
+
+
+def timeshard_path(mt, torch, device, config, here, cuda_ms, phase4):
+    """Phase 9: time sharding on one card (see the module's docstring).
+    ``phase4``: the paths of phase 4's target, reference and
+    ``process()`` output.  Returns the phase's numbers and the (K1, K2,
+    K3) launches of one sharded ``limit()``; fails on any mismatch."""
+    from matchering_tpu_torch.io import wav
+    from matchering_tpu_torch.kernels import envelope, scan, sos
+    from matchering_tpu_torch.parallel import batch, mesh, timeshard
+
+    def counted(fn):
+        envelope.LAUNCHES = scan.LAUNCHES = sos.LAUNCHES = 0
+        out = fn()
+        return out, (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
+
+    def timed(fn):
+        """``fn()`` with the wall time and the peak device memory of the
+        call, counted from 0 and above what was allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        out, launches = counted(fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        return out, launches, {
+            "wall_s": wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "peak_above_inputs_bytes": torch.cuda.max_memory_allocated() - before,
+            "k1": launches[0], "k2": launches[1], "k3": launches[2],
+        }
+
+    numbers = {}
+
+    # limit_sharded over four shards of the card against limit(), on the
+    # main path's limiter input (the unlimited master of phase 4's pair)
+    target, reference = make_pair(FULL_SECONDS, SR, SEED)
+    loud = mt.master(target, reference, config, need_default=False, need_no_limiter=True,
+                     device=device).result_no_limiter
+    del target, reference
+    grid = timeshard.TimeGrid([device] * LIMIT_SHARDS)
+    block = FULL_N // LIMIT_SHARDS
+    checks = {}
+    for dtype, tol in ((torch.float32, SCAN_TOL), (torch.float64, SCAN_REL_TOL_F64)):
+        cfg = mt.Config(dtype="float32" if dtype == torch.float32 else "float64")
+        x = loud.to(dtype)
+        parts = grid.split(x, block)
+        want = mt.limit(x, cfg)
+        sharded, launches = counted(lambda: timeshard.limit_sharded(parts, cfg, grid))
+        got = grid.join(sharded, FULL_N, device)
+        torch.cuda.synchronize()
+        require(launches == SHARDED_LAUNCHES,
+                f"limit_sharded launched K1, K2 and K3 {launches} times, not {SHARDED_LAUNCHES}")
+        require(bool(torch.isfinite(got).all()), "limit_sharded gave non-finite values")
+        diff = (got.double() - want.double()).abs()
+        if dtype == torch.float32:
+            err = float(diff.max())
+        else:
+            err = float((diff / want.double().abs().clamp_min(1e-300)).max())
+        require(err <= tol, f"limit_sharded on {LIMIT_SHARDS} shards off limit() by {err} > {tol} ({dtype})")
+        checks[str(dtype).replace("torch.", "")] = {
+            "error": err, "tolerance": tol, "relative": dtype == torch.float64,
+            "over_threshold_share": float((x.abs().amax(-1) > cfg.threshold).double().mean()),
+        }
+        if dtype == torch.float32:
+            checks["float32"]["sharded_ms"] = cuda_ms(lambda: timeshard.limit_sharded(parts, cfg, grid), 10)
+            checks["float32"]["limit_ms"] = cuda_ms(lambda: mt.limit(x, cfg), 10)
+        del x, parts, want, sharded, got, diff
+    numbers["limit_sharded"] = {"shards": LIMIT_SHARDS, "n": FULL_N, "launches": list(SHARDED_LAUNCHES),
+                                **checks}
+    del loud
+    print(json.dumps({"timeshard_limit": numbers["limit_sharded"]}), flush=True)
+
+    # the long form: a 60-min 96 kHz target against a 200 s reference
+    long_config = mt.Config(internal_sample_rate=LONG_RATE, max_length=LONG_SECONDS + 1)
+    target = card_track(torch, device, LONG_SECONDS, LONG_RATE, SEED + 70, "target")
+    reference = card_track(torch, device, LONG_REFERENCE_SECONDS, LONG_RATE, SEED + 71, "reference")
+    long_mesh = mesh.single_axis_mesh("time", devices=[device] * LONG_SHARDS)
+    runs = []
+    for label in ("cold", "warm"):
+        single, launches, run = timed(lambda: mt.master(target, reference, long_config, device=device).result)
+        require(launches == expected_launches(long_config),
+                f"the long-form master() launched {launches}, not {expected_launches(long_config)}")
+        runs.append({"call": "master", "run": label, **run})
+        print(json.dumps({"long_form_run": runs[-1]}), flush=True)
+        if label == "cold":
+            del single
+    for label in ("cold", "warm"):
+        sharded, launches, run = timed(
+            lambda: timeshard.master_sharded(target, reference, long_config, mesh=long_mesh).result
+        )
+        require(launches == SHARDED_LAUNCHES,
+                f"the long-form master_sharded launched {launches}, not {SHARDED_LAUNCHES}")
+        runs.append({"call": f"master_sharded ({LONG_SHARDS} shards)", "run": label, **run})
+        print(json.dumps({"long_form_run": runs[-1]}), flush=True)
+        if label == "cold":
+            del sharded
+    samples = LONG_SECONDS * LONG_RATE
+    require(tuple(single.shape) == tuple(sharded.shape) == (samples, 2),
+            f"long-form results {tuple(single.shape)} and {tuple(sharded.shape)}")
+    require(bool(torch.isfinite(sharded).all()), "the long-form sharded master holds non-finite samples")
+    long_snr = card_snr_db(torch, single, sharded)
+    require(long_snr >= SNR_GATE_DB, f"long-form master_sharded vs master: {long_snr} dB < {SNR_GATE_DB} dB")
+    for run in runs:
+        run["realtime_factor"] = LONG_SECONDS / run["wall_s"]
+    numbers["long_form"] = {
+        "audio_seconds": LONG_SECONDS, "rate": LONG_RATE, "samples": samples,
+        "reference_seconds": LONG_REFERENCE_SECONDS, "shards": LONG_SHARDS, "runs": runs,
+        "snr_db_sharded_vs_master": long_snr, "gate_db": SNR_GATE_DB,
+    }
+    del target, reference, single, sharded
+    torch.cuda.empty_cache()
+
+    # master_farm over (pairs=2, time=2) of the card: two of phase 7's jobs
+    # (rebuilt from its seeds), bucketed, with their true lengths
+    t_seconds, r_seconds = farm_seconds(np.random.RandomState(SEED + 5))
+    targets = [make_pair(t_seconds[i], SR, SEED + 10 + i)[0] for i in (0, 1)]
+    references = [make_pair(r_seconds[i], SR, SEED + 30 + i)[1] for i in (0, 1)]
+    t_batch, t_lens = batch.bucket_pad(targets, BUCKET, device=device)
+    r_batch, r_lens = batch.bucket_pad(references, BUCKET, device=device)
+    farm_mesh = mesh.make_mesh(pairs=2, time=2, devices=[device] * 4)
+    farm, launches, run = timed(lambda: timeshard.master_farm(
+        t_batch, r_batch, config, mesh=farm_mesh, target_lengths=t_lens, reference_lengths=r_lens
+    ).result)
+    expected = tuple(2 * k for k in SHARDED_LAUNCHES)
+    require(launches == expected, f"master_farm launched {launches}, not {expected}")
+    snrs = []
+    for i, length in enumerate(t_lens):
+        require(not bool(farm[i, length:].any()), f"master_farm row {i} is not 0 past its length")
+        single = mt.master(targets[i], references[i], config, device=device).result
+        snrs.append(card_snr_db(torch, single, farm[i, :length]))
+        require(snrs[-1] >= SNR_GATE_DB, f"master_farm row {i}: {snrs[-1]} dB < {SNR_GATE_DB} dB")
+    numbers["master_farm"] = {"mesh": farm_mesh.shape, "lengths": t_lens, "snr_db_vs_master": snrs, **run}
+    del t_batch, r_batch, farm
+
+    # the command line with --time_sharded on phase 4's pair
+    target_path, reference_path, process_out = phase4
+    out_path = os.path.join(os.path.dirname(process_out), "sharded_cli.wav")
+    start = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "matchering_tpu_torch", target_path, reference_path, out_path,
+         "--time_sharded", "--quiet"],
+        cwd=here, capture_output=True, text=True, timeout=300,
+    )
+    require(cli.returncode == 0, f"the --time_sharded CLI exited {cli.returncode}: {cli.stderr.strip()[-2000:]}")
+    sharded_out, rate = wav.read(out_path, raw_int=True)
+    single_out, _ = wav.read(process_out, raw_int=True)
+    require(rate == SR and sharded_out.shape == single_out.shape,
+            f"the --time_sharded CLI wrote {sharded_out.shape} at {rate} Hz, process() {single_out.shape}")
+    steps = int(np.max(np.abs(sharded_out.astype(np.int32) - single_out)))
+    require(steps <= 1, f"the --time_sharded CLI is {steps} PCM_16 steps off process()")
+    numbers["cli"] = {"wall_s": time.perf_counter() - start, "max_pcm16_steps_vs_process": steps,
+                      "devices": torch.cuda.device_count()}
+    return numbers
+
+
+def farm_seconds(rng):
+    """Phase 7's target and reference durations: the first draws of its
+    generator, seeded with SEED + 5."""
+    return rng.uniform(150, 180, FARM_JOBS), rng.uniform(140, 180, FARM_JOBS)
 
 
 def expected_launches(config):
@@ -1125,48 +1341,50 @@ def main() -> None:
     )
 
     # --- 4. the main path: process() on a 180 s WAV pair ---
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        target, reference = make_pair(FULL_SECONDS, SR, SEED)
-        target_path = os.path.join(tmp, "target.wav")
-        reference_path = os.path.join(tmp, "reference.wav")
-        out_path = os.path.join(tmp, "master.wav")
-        wav.write(target_path, target, SR, "PCM_16")
-        wav.write(reference_path, reference, SR, "PCM_16")
-        del target, reference
-        runs = []
-        events = []  # (time, message) of process()'s own log events
-        for label in ("cold", "warm"):
-            timeline = run_process(
-                label, runs, events, target_path, reference_path, [mt.pcm16(out_path)]
-            )
-        # the device's share of master(): one profiled call on the staged int16 pair
-        target_pcm, _ = mt.load(target_path, "target", raw_int=True)
-        reference_pcm, _ = mt.load(reference_path, "reference", raw_int=True)
-        mt.master(target_pcm, reference_pcm, config, device="cuda")
-        torch.cuda.synchronize()
-        def profiled_master():
-            scan.LAUNCHES = 0
-            sos.LAUNCHES = 0
-            mt.master(target_pcm, reference_pcm, config, device="cuda")
-
-        master_ms, ops = profile_device(torch, profiled_master)
-        # K2's device kernels in the profile, one per call, and no K3
-        sos_kernels = sum(o["calls"] for o in ops if "sos_scan_kernel" in o["op"])
-        scan_kernels = sum(o["calls"] for o in ops if "scan_kernel" in o["op"]) - sos_kernels
-        device_ms = sum(o["device_ms"] for o in ops)
-        require(device_ms > 0, "the profiler saw no device time in master()")
-        _, k2_expected, k3_expected = expected_launches(config)
-        require(
-            scan_kernels == scan.LAUNCHES == k2_expected and sos_kernels == sos.LAUNCHES == k3_expected,
-            f"master() made {scan.LAUNCHES} K2 and {sos.LAUNCHES} K3 calls but the profile shows "
-            f"{scan_kernels} scan and {sos_kernels} sos_scan kernels",
+    # phase 9 reads phase 4's files again: the folder lives to the end of the run
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = workdir.name
+    target, reference = make_pair(FULL_SECONDS, SR, SEED)
+    target_path = os.path.join(tmp, "target.wav")
+    reference_path = os.path.join(tmp, "reference.wav")
+    out_path = os.path.join(tmp, "master.wav")
+    wav.write(target_path, target, SR, "PCM_16")
+    wav.write(reference_path, reference, SR, "PCM_16")
+    del target, reference
+    runs = []
+    events = []  # (time, message) of process()'s own log events
+    for label in ("cold", "warm"):
+        timeline = run_process(
+            label, runs, events, target_path, reference_path, [mt.pcm16(out_path)]
         )
-        del target_pcm, reference_pcm
-        out, rate = wav.read(out_path)
-        require(rate == SR and out.shape == (FULL_N, 2), f"output is {out.shape} at {rate} Hz")
-        require(bool(np.all(np.isfinite(out))), "the output holds non-finite samples")
-        peak = float(np.max(np.abs(out)))
-        require(peak <= config.threshold, f"output peak {peak} exceeds {config.threshold}")
+    # the device's share of master(): one profiled call on the staged int16 pair
+    target_pcm, _ = mt.load(target_path, "target", raw_int=True)
+    reference_pcm, _ = mt.load(reference_path, "reference", raw_int=True)
+    mt.master(target_pcm, reference_pcm, config, device="cuda")
+    torch.cuda.synchronize()
+    def profiled_master():
+        scan.LAUNCHES = 0
+        sos.LAUNCHES = 0
+        mt.master(target_pcm, reference_pcm, config, device="cuda")
+
+    master_ms, ops = profile_device(torch, profiled_master)
+    # K2's device kernels in the profile, one per call, and no K3
+    sos_kernels = sum(o["calls"] for o in ops if "sos_scan_kernel" in o["op"])
+    scan_kernels = sum(o["calls"] for o in ops if "scan_kernel" in o["op"]) - sos_kernels
+    device_ms = sum(o["device_ms"] for o in ops)
+    require(device_ms > 0, "the profiler saw no device time in master()")
+    _, k2_expected, k3_expected = expected_launches(config)
+    require(
+        scan_kernels == scan.LAUNCHES == k2_expected and sos_kernels == sos.LAUNCHES == k3_expected,
+        f"master() made {scan.LAUNCHES} K2 and {sos.LAUNCHES} K3 calls but the profile shows "
+        f"{scan_kernels} scan and {sos_kernels} sos_scan kernels",
+    )
+    del target_pcm, reference_pcm
+    out, rate = wav.read(out_path)
+    require(rate == SR and out.shape == (FULL_N, 2), f"output is {out.shape} at {rate} Hz")
+    require(bool(np.all(np.isfinite(out))), "the output holds non-finite samples")
+    peak = float(np.max(np.abs(out)))
+    require(peak <= config.threshold, f"output peak {peak} exceeds {config.threshold}")
     warm = runs[-1]["wall_s"]
     print(json.dumps({
         "process": runs, "audio_seconds": FULL_SECONDS, "realtime_factor_warm": FULL_SECONDS / warm,
@@ -1215,7 +1433,16 @@ def main() -> None:
     k3, configs = configs_path(mt, torch, device, cuda_ms, kernel_ms, run_process, bandwidth)
     print(json.dumps({"configs_path": configs}), flush=True)
 
-    # --- 9. results ---
+    # --- 9. the time-sharded path: limit_sharded, the long form, master_farm, --time_sharded ---
+    sharded = timeshard_path(mt, torch, device, config, here, cuda_ms, (target_path, reference_path, out_path))
+    print(json.dumps({"timeshard_path": sharded}), flush=True)
+    workdir.cleanup()
+    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matchering_tpu")]
+    require(not leaked, f"the port imported {leaked} on its way")
+    for numbers, launches in zip((k1, k2, k3), SHARDED_LAUNCHES):
+        numbers["launches_sharded"] = launches  # one sharded limit() on one card
+
+    # --- 10. results ---
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({
         "ok": True,

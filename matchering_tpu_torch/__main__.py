@@ -2,9 +2,9 @@
 
 Counterpart of ``matchering_tpu.__main__``, with the same parser: positional
 target / reference / result plus flags for bit depth, limiter bypass,
-normalization, previews and length bucketing.  It runs on the card;
-``--time_sharded`` is parsed but not ported yet, and ends in a parser
-error.
+normalization, previews, length bucketing and time sharding.  It runs on
+the card; ``--time_sharded`` cuts the track's time axis over every visible
+CUDA device (``parallel.timeshard.master_sharded``).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--time_sharded",
         action="store_true",
-        help="shard the track's time axis across all local devices (not ported yet)",
+        help="shard the track's time axis across all local devices",
     )
     parser.add_argument(
         "--length_bucketing",
@@ -67,11 +67,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, device=None) -> int:
     """Run the CLI on ``argv`` (``sys.argv[1:]`` if None) on ``device``
-    (``cuda`` unless named)."""
+    (``cuda`` unless named).  With ``--time_sharded``, ``device`` may be
+    a list: one time shard on each (default: every visible CUDA device)."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.time_sharded:
-        parser.error("--time_sharded is not ported to matchering_tpu_torch yet")
+    if args.time_sharded and args.length_bucketing:
+        parser.error(
+            "--length_bucketing applies to the single-device graph; "
+            "--time_sharded derives its shapes from the shard grid"
+        )
 
     import matchering_tpu_torch as mt
 
@@ -90,6 +94,10 @@ def main(argv=None, device=None) -> int:
     )
     preview_target = mt.pcm16(args.preview_target) if args.preview_target else None
     preview_result = mt.pcm16(args.preview_result) if args.preview_result else None
+    if args.time_sharded:
+        devices = device if device is None or isinstance(device, (list, tuple)) else [device]
+        _time_sharded(args, result, subtype, preview_target, preview_result, devices)
+        return 0
     mt.process(
         target=args.target,
         reference=args.reference,
@@ -100,6 +108,48 @@ def main(argv=None, device=None) -> int:
         device=device,
     )
     return 0
+
+
+def _time_sharded(args, result, subtype, preview_target, preview_result, devices) -> None:
+    """``process()``'s host shell (loading, checks, the equality check,
+    saving, previews) around ``master_sharded`` over a ``time`` mesh of
+    ``devices`` (``matchering_tpu/__main__.py:90-137``)."""
+    import numpy as np
+
+    import matchering_tpu_torch as mt
+    from .core import _assert_graph_ready, _ingest
+    from .parallel.mesh import single_axis_mesh
+    from .parallel.timeshard import master_sharded
+    from .utils import get_temp_folder
+
+    mesh = single_axis_mesh("time", devices=devices)
+    device = mesh.devices.flat[0]
+    config = mt.Config()
+    temp_folder = config.temp_folder or get_temp_folder([result])
+    target_track = _ingest(args.target, "target", config, temp_folder, device)
+    reference_track = _ingest(args.reference, "reference", config, temp_folder, device)
+    if not config.allow_equality:
+        mt.check_equality(target_track[0], reference_track[0])
+    _assert_graph_ready((target_track, reference_track), config)
+
+    out = master_sharded(
+        target_track[0],
+        reference_track[0],
+        config,
+        mesh=mesh,
+        need_default=not args.no_limiter,
+        need_no_limiter=args.no_limiter and args.dont_normalize,
+        need_no_limiter_normalized=args.no_limiter and not args.dont_normalize,
+    )
+    if not args.no_limiter:
+        rendered = out.result
+    elif args.dont_normalize:
+        rendered = out.result_no_limiter
+    else:
+        rendered = out.result_no_limiter_normalized
+    mt.save(args.result, rendered.cpu().numpy().astype(np.float64), config.internal_sample_rate, subtype)
+    if preview_target or preview_result:
+        mt.create_preview(target_track[0], rendered, config, preview_target, preview_result)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,9 @@ the single-pair path, both roles are bucket-padded on the device, every
 track is analysed and limited at its true length (``master_graph``'s
 dynamic path), and the outputs are cut back to their true lengths before
 encoding, so each job's files are what ``process()`` writes for its pair.
+A device mesh (``parallel.make_mesh``) spreads the pairs over its
+``pairs`` rows and, with a ``time`` axis, time-shards each pair over its
+row (``parallel.timeshard``).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .config import Config
 from .core import _assert_graph_ready, _ingest, _variant_key
@@ -21,7 +25,9 @@ from .checker import check_equality
 from .io import save
 from .log import Code, ModuleError, debug, debug_line, info
 from .ops import basics
-from .parallel.batch import bucket_pad, master_batch, master_pairs, refuse_mesh
+from .parallel.batch import bucket_pad, master_batch, master_pairs
+from .parallel.mesh import require_pairs_axis
+from .parallel.timeshard import master_farm
 from .preview import create_preview
 from .results import Result
 from .utils import get_temp_folder, resolve_device, to_device
@@ -59,30 +65,43 @@ def process_batch(
     device=None,
 ) -> None:
     """Master every job as one bucketed batch on ``device`` (``cuda``
-    unless named; no CPU fallback).
+    unless named; no CPU fallback), or over ``mesh``.
 
     Each role is padded to its longest track rounded up to
     ``bucket_multiple`` (default ``config.length_bucketing``, else 2^18
     samples).  ``dispatch``: ``"pipelined"`` runs one graph per pair
-    (``master_pairs``), all enqueued before any result is read;
-    ``"vmapped"`` runs one batch-first graph over all pairs
-    (``master_batch``): one set of kernel launches for the batch (one K1
-    and four K2 with the default filter orders).
-    ``"auto"`` is ``"pipelined"``, as in the JAX package without a time
-    axis.  ``mesh`` is not ported: any mesh raises NotImplementedError."""
-    refuse_mesh(mesh)
+    (``master_pairs``), all enqueued before any result is read, and with a
+    pairs-only ``mesh`` goes round-robin over its devices; ``"vmapped"``
+    runs one batch-first graph over all pairs (``master_batch``): one set
+    of kernel launches for the batch (one K1 and four K2 with the default
+    filter orders), its rows sharded over the mesh's ``pairs`` axis; with
+    a ``time`` axis too, each pair is time-sharded over its row
+    (``parallel.timeshard.master_farm``).  ``"auto"`` is ``"vmapped"``
+    when the mesh has a ``time`` axis, else ``"pipelined"``, as in the
+    JAX package.  ``mesh`` (``parallel.make_mesh``) must have a ``pairs``
+    axis; its first device loads the jobs unless ``device`` is named."""
+    time_sharded = mesh is not None and mesh.shape.get("time", 1) > 1
+    if mesh is not None:
+        require_pairs_axis(mesh)
     if bucket_multiple is None:
         bucket_multiple = config.length_bucketing or (1 << 18)
     if dispatch == "auto":
-        dispatch = "pipelined"
+        dispatch = "vmapped" if time_sharded else "pipelined"
     if dispatch not in ("pipelined", "vmapped"):
         raise ValueError(f"unknown dispatch strategy '{dispatch}'")
+    if dispatch == "pipelined" and time_sharded:
+        raise ValueError(
+            "pipelined dispatch runs whole pairs on single devices — it "
+            "composes with a pairs-only mesh (round-robin), not a time axis"
+        )
     jobs = list(jobs)
     if not jobs:
         raise RuntimeError("The job list is empty")
     for job in jobs:
         if not job.results and not (job.preview_target or job.preview_result):
             raise RuntimeError(f"Job '{job.target}' requests no outputs")
+    if device is None and mesh is not None:
+        device = mesh.devices.flat[0]
     device = resolve_device(device)
 
     debug(f"matchering_tpu_torch farm: {len(jobs)} pairs in one dispatch")
@@ -120,16 +139,32 @@ def process_batch(
         f"(true lengths {t_lens} / {r_lens})"
     )
 
+    if mesh is not None and dispatch == "vmapped":
+        # the batch is cut over the mesh's pairs rows: round the job count
+        # up by repeating the last pair (its extra outputs are not encoded)
+        short = -len(jobs) % mesh.shape["pairs"]
+        if short:
+            t_batch = torch.cat([t_batch, t_batch[-1:].expand(short, -1, -1)])
+            r_batch = torch.cat([r_batch, r_batch[-1:].expand(short, -1, -1)])
+            t_lens, r_lens = t_lens + [t_lens[-1]] * short, r_lens + [r_lens[-1]] * short
+
     if dispatch == "pipelined":
         outs = master_pairs(
             list(t_batch), list(r_batch), config, **needs,
             target_lengths=t_lens, reference_lengths=r_lens, device=device,
+            devices=None if mesh is None else list(mesh.devices.flat),
         )
     else:
-        out = master_batch(
-            t_batch, r_batch, config, **needs,
-            target_lengths=t_lens, reference_lengths=r_lens, device=device,
-        )
+        if time_sharded:
+            out = master_farm(
+                t_batch, r_batch, config, mesh=mesh, **needs,
+                target_lengths=t_lens, reference_lengths=r_lens,
+            )
+        else:
+            out = master_batch(
+                t_batch, r_batch, config, mesh=mesh, **needs,
+                target_lengths=t_lens, reference_lengths=r_lens, device=device,
+            )
         outs = [out.row(i) for i in range(len(jobs))]
     keys = {"limited": "result", "raw": "result_no_limiter", "normalized": "result_no_limiter_normalized"}
 

@@ -1,4 +1,4 @@
-"""Mastering many (target, reference) pairs on one device (PyTorch).
+"""Mastering many (target, reference) pairs (PyTorch).
 
 Counterpart of ``matchering_tpu/parallel/batch.py``.  Pairs of one batch
 are zero-padded to a shared bucket per role (``bucket_pad``), and each
@@ -12,7 +12,7 @@ Two dispatches, as in the JAX package:
 
 * ``master_batch`` runs ONE batch-first graph over the B rows: one set of
   launches for the batch (with the default filter orders, one K1 and four
-  K2 launches in its limiter);
+  K2 launches in its limiter), or one per row of a mesh's ``pairs`` axis;
 * ``master_pairs`` runs one graph per pair, all enqueued before any result
   is read, optionally round-robin over several devices.
 
@@ -34,14 +34,7 @@ from ..config import Config
 from ..stages import MasterOutput, check_lengths, master_graph
 from ..state import operators_for_config
 from ..utils import RowInts, resolve_device, to_device
-
-
-def refuse_mesh(mesh) -> None:
-    """Raise for any device mesh: meshes are not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "device meshes are not ported to matchering_tpu_torch yet (ROADMAP.md queue 3)"
-        )
+from .mesh import Mesh, require_pairs_axis
 
 
 def bucket_pad(
@@ -73,7 +66,7 @@ def master_batch(
     targets,
     references,
     config: Config = Config(),
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     need_default: bool = True,
     need_no_limiter: bool = False,
     need_no_limiter_normalized: bool = False,
@@ -90,8 +83,18 @@ def master_batch(
     row i then equals the single-pair master of unpadded pair i, and its
     samples past the length are 0 (trim on the host).  Without them the
     padded length is the analysis length (right only for tracks that fill
-    the bucket).  ``mesh`` is not ported: any mesh raises."""
-    refuse_mesh(mesh)
+    the bucket).
+
+    ``mesh`` (optional, with a ``pairs`` axis; ``parallel.make_mesh``):
+    the B rows are cut into ``shape["pairs"]`` consecutive runs, run p a
+    graph on the first device of the mesh's row p (a JAX mesh replicates
+    the rows over its ``time`` axis), and the outputs are gathered on the
+    mesh's first device; ``device`` is then not used."""
+    if mesh is not None:
+        return _master_batch_over_mesh(
+            targets, references, config, mesh, need_default, need_no_limiter,
+            need_no_limiter_normalized, target_lengths, reference_lengths,
+        )
     device = resolve_device(device)
     if len(targets) != len(references):
         raise ValueError("targets and references differ in count")
@@ -116,6 +119,37 @@ def master_batch(
         need_no_limiter_normalized=need_no_limiter_normalized,
         target_length=target_lengths,
         reference_length=reference_lengths,
+    )
+
+
+def _master_batch_over_mesh(
+    targets, references, config, mesh, need_default, need_no_limiter,
+    need_no_limiter_normalized, target_lengths, reference_lengths,
+) -> MasterOutput:
+    """:func:`master_batch` with its rows sharded over ``mesh``'s pairs
+    axis (``matchering_tpu/parallel/batch.py:215-226``)."""
+    require_pairs_axis(mesh)
+    devices = [row[0] for row in mesh.rows("pairs", "time")]
+    count = len(targets)
+    if count % len(devices):
+        raise ValueError(f"batch {count} not divisible by pairs axis {len(devices)}")
+    per = count // len(devices)
+    outs = []
+    for p, device in enumerate(devices):
+        rows = slice(p * per, (p + 1) * per)
+        outs.append(master_batch(
+            targets[rows], references[rows], config,
+            need_default=need_default,
+            need_no_limiter=need_no_limiter,
+            need_no_limiter_normalized=need_no_limiter_normalized,
+            target_lengths=None if target_lengths is None else list(target_lengths)[rows],
+            reference_lengths=None if reference_lengths is None else list(reference_lengths)[rows],
+            device=device,
+        ))
+    home = devices[0]
+    return MasterOutput(
+        *(None if outs[0][k] is None else torch.cat([o[k].to(home) for o in outs]) for k in range(3)),
+        report={key: torch.cat([o.report[key].to(home) for o in outs]) for key in outs[0].report},
     )
 
 

@@ -34,6 +34,7 @@ from matchering_tpu_torch.kernels import envelope, scan
 from matchering_tpu_torch.limiter import limit
 from matchering_tpu_torch.ops import basics, iir, spectrum
 from matchering_tpu_torch.parallel import batch
+from matchering_tpu_torch.parallel.mesh import single_axis_mesh
 from matchering_tpu_torch.utils import RowInts, make_odd
 
 SR = 44100
@@ -264,8 +265,10 @@ def test_master_batch_checks_lengths_on_the_host(padded):
         )
     with pytest.raises(ValueError, match="both"):
         batch.master_batch(t_batch, r_batch, target_lengths=t_lens, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        batch.master_batch(t_batch, r_batch, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="'pairs' mesh axis"):
+        batch.master_batch(
+            t_batch, r_batch, mesh=single_axis_mesh("time", devices=["cpu"]), device="cpu"
+        )
 
 
 @pytest.fixture(scope="module")

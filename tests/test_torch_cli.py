@@ -2,8 +2,9 @@
 
 The parser must offer the JAX parser's options with the same choices and
 defaults; ``main(argv, device="cpu")`` must write what ``process()`` writes
-for the same arguments; the two options that are not ported end in a
-parser error; from the command line it runs on the card only.
+for the same arguments; ``--time_sharded`` must write what the unsharded
+CLI writes (one PCM_16 LSB), and beside ``--length_bucketing`` end in the
+JAX parser's error; from the command line it runs on the card only.
 """
 
 import os
@@ -71,13 +72,25 @@ def test_main_no_limiter_normalized(files):
 @pytest.mark.parametrize(
     "flag", [["--time_sharded"], ["--length_bucketing", "65536", "--time_sharded"]]
 )
-def test_unported_options_are_parser_errors(flag, capsys):
-    """``--time_sharded`` is not ported, alone or beside the (ported)
-    ``--length_bucketing``."""
-    with pytest.raises(SystemExit) as stop:
-        main(["t.wav", "r.wav", "o.wav", *flag], device="cpu")
-    assert stop.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+def test_unported_options_are_parser_errors(flag, files, capsys):
+    """``--time_sharded`` alone runs the time-sharded master over the
+    devices given (four CPU shards here) and writes the unsharded CLI's
+    file within one PCM_16 LSB; beside ``--length_bucketing`` it is the
+    JAX parser's error."""
+    d = files
+    args = [str(d / "t.wav"), str(d / "r48.wav")]
+    if len(flag) > 1:
+        with pytest.raises(SystemExit) as stop:
+            main(args + [str(d / "both.wav"), *flag], device="cpu")
+        assert stop.value.code == 2
+        assert "--time_sharded derives its shapes from the shard grid" in capsys.readouterr().err
+        return
+    assert main(args + [str(d / "sharded.wav"), *flag, "--quiet"], device=["cpu"] * 4) == 0
+    assert main(args + [str(d / "unsharded.wav"), "--quiet"], device="cpu") == 0
+    sharded, rate = wav.read(str(d / "sharded.wav"), raw_int=True)
+    unsharded, _ = wav.read(str(d / "unsharded.wav"), raw_int=True)
+    assert rate == 44100 and sharded.dtype == np.int16 and sharded.shape == unsharded.shape
+    assert np.max(np.abs(sharded.astype(np.int32) - unsharded)) <= 1
 
 
 def test_command_line_needs_a_card(files):

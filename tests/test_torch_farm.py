@@ -18,6 +18,7 @@ from matchering_tpu.__main__ import main as jax_cli
 from matchering_tpu_torch.__main__ import main as port_cli
 from matchering_tpu_torch.io import wav
 from matchering_tpu_torch.parallel import batch
+from matchering_tpu_torch.parallel.mesh import make_mesh, single_axis_mesh
 
 SR = 44100
 SECONDS = [(3.0, 4.6), (4.4, 3.2), (5.5, 5.8)]  # (target, reference) per job
@@ -117,11 +118,14 @@ def test_dispatches_agree(farm, snr, name):
     "call, error",
     [
         (lambda p, f: mt.process_batch(_jobs(mt, p, f, "x"), dispatch="sideways", device="cpu"), ValueError),
-        (lambda p, f: mt.process_batch(_jobs(mt, p, f, "x"), mesh=object(), device="cpu"), NotImplementedError),
+        (lambda p, f: mt.process_batch(_jobs(mt, p, f, "x"), mesh=single_axis_mesh("time", devices=["cpu"]),
+                                       device="cpu"), ValueError),
+        (lambda p, f: mt.process_batch(_jobs(mt, p, f, "x"), mesh=make_mesh(1, 2, devices=["cpu"] * 2),
+                                       dispatch="pipelined", device="cpu"), ValueError),
         (lambda p, f: mt.process_batch([], device="cpu"), RuntimeError),
         (lambda p, f: mt.process_batch([mt.PairJob(*p[0])], device="cpu"), RuntimeError),
     ],
-    ids=["unknown-dispatch", "mesh", "empty", "outputless"],
+    ids=["unknown-dispatch", "mesh", "pipelined-time-mesh", "empty", "outputless"],
 )
 def test_process_batch_rejects(pairs, tmp_path, call, error):
     with pytest.raises(error):
