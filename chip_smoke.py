@@ -90,9 +90,33 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    against ``master`` and 0 past its length; and ``python3 -m
    matchering_tpu_torch --time_sharded`` on phase 4's pair, its PCM_16
    file within one LSB of phase 4's;
-10. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+10. multi-process runs (``parallel/launch.py``), both processes on this
+   one card, ``gloo`` carrying the host integers: the package's self-test
+   (``python3 -m matchering_tpu_torch.parallel.launch selftest``) twice in
+   float32, with one device per process and with two shards of the card
+   per process and a time axis of 2 (``master_farm_distributed``), every
+   row >= 95 dB against the single-process float64 master on the card;
+   then two worker processes (this script with ``--distributed-worker``)
+   on phase 7's eight jobs in the JAX package's layout: ``initialize``,
+   each decodes and checks only the jobs it owns, ``agree_bucket``,
+   ``bucket_pad``, ``master_batch_distributed``,
+   ``local_results``, PCM_16 WAV (the buckets: 7,864,320 for the targets,
+   8,126,464 for the references); cold and warm, with each process's wall
+   time, pairs per second, peak device memory and launches (1 K1, 4 K2,
+   0 K3: one batched graph over its 4 rows), each file within one LSB of
+   phase 7's ``process()`` file for the job;
+11. the codecs (``io/native``): the native codec must have built (its
+   build time is reported); phase 4's
+   180 s result round-trips through FLAC at PCM_16 and PCM_24 to the same
+   codes as WAV; ``process()`` from a FLAC target to a FLAC PCM_24 result
+   within one PCM_24 step of the WAV run; the PCM_16 WAV encode by the
+   native and by the numpy writer (byte-identical), the FLAC encode and
+   decode, timed on the host; which lossy libraries load, and a round
+   trip through each that does (missing ones are reported, not failed);
+12. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
    kernel's batched numbers from phases 3, 7 and 8, its launches in one
-   sharded ``limit()`` (phase 9), and each launch's registers, shared
+   sharded ``limit()`` (phase 9) and per process of phase 10's full-width
+   run, and each launch's registers, shared
    memory and resident blocks per SM from the kernels' info queries,
    beside the grid its wrapper recorded for the timed launches), then,
    last, the device line ``{"ok": true, "device": {...}}``.
@@ -104,6 +128,7 @@ It imports nothing of JAX or ``matchering_tpu``.
 import ctypes
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -447,11 +472,13 @@ def length_modes(torch, device, config, rng, release, k2_error, cuda_ms, kernel_
     return k1_batched, k2_batched
 
 
-def farm_path(mt, torch, device, config, recorder):
+def farm_path(mt, torch, device, config, recorder, tmp):
     """Phase 7: ``process_batch`` on eight jobs, both dispatches (see the
     module's docstring).  ``recorder(events)`` installs log handlers that
-    append (time, message) to ``events``.  Returns the phase's numbers;
-    fails on any mismatch."""
+    append (time, message) to ``events``.  The jobs and ``process()``'s
+    file for each (``t{i}.wav``, ``r{i}.wav``, ``single{i}.wav``) stay in
+    the folder ``tmp`` for phase 10.  Returns the phase's numbers; fails on
+    any mismatch."""
     from matchering_tpu_torch import stages, state
     from matchering_tpu_torch.io import wav
     from matchering_tpu_torch.kernels import envelope, scan, sos
@@ -463,129 +490,129 @@ def farm_path(mt, torch, device, config, recorder):
     numbers = {"jobs": FARM_JOBS, "target_seconds": t_seconds.tolist(),
                "reference_seconds": r_seconds.tolist(), "bucket": BUCKET}
     audio_seconds = float(np.sum(np.floor(t_seconds * SR))) / SR
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_farm_") as tmp:
-        def at(name):
-            return os.path.join(tmp, name)
 
+    def at(name):
+        return os.path.join(tmp, name)
+
+    for i in range(FARM_JOBS):
+        wav.write(at(f"t{i}.wav"), make_pair(t_seconds[i], SR, SEED + 10 + i)[0], SR, "PCM_16")
+        wav.write(at(f"r{i}.wav"), make_pair(r_seconds[i], SR, SEED + 30 + i)[1], SR, "PCM_16")
+
+    def jobs(tag):
+        """One pcm16 result each; job 0 also asks for both previews, job 1
+        for a raw FLOAT variant."""
+        out = []
         for i in range(FARM_JOBS):
-            wav.write(at(f"t{i}.wav"), make_pair(t_seconds[i], SR, SEED + 10 + i)[0], SR, "PCM_16")
-            wav.write(at(f"r{i}.wav"), make_pair(r_seconds[i], SR, SEED + 30 + i)[1], SR, "PCM_16")
+            results = [mt.pcm16(at(f"{tag}{i}.wav"))]
+            if i == 1:
+                results.append(mt.Result(at(f"{tag}{i}_raw.wav"), "FLOAT", use_limiter=False,
+                                         normalize=False))
+            previews = {}
+            if i == 0:
+                previews = {"preview_target": mt.pcm16(at(f"{tag}_pt.wav")),
+                            "preview_result": mt.pcm16(at(f"{tag}_pr.wav"))}
+            out.append(mt.PairJob(at(f"t{i}.wav"), at(f"r{i}.wav"), results, **previews))
+        return out
 
-        def jobs(tag):
-            """One pcm16 result each; job 0 also asks for both previews, job 1
-            for a raw FLOAT variant."""
-            out = []
-            for i in range(FARM_JOBS):
-                results = [mt.pcm16(at(f"{tag}{i}.wav"))]
-                if i == 1:
-                    results.append(mt.Result(at(f"{tag}{i}_raw.wav"), "FLOAT", use_limiter=False,
-                                             normalize=False))
-                previews = {}
-                if i == 0:
-                    previews = {"preview_target": mt.pcm16(at(f"{tag}_pt.wav")),
-                                "preview_result": mt.pcm16(at(f"{tag}_pr.wav"))}
-                out.append(mt.PairJob(at(f"t{i}.wav"), at(f"r{i}.wav"), results, **previews))
-            return out
-
-        runs, timelines = [], {}
-        expected = {"pipelined": (FARM_JOBS, 4 * FARM_JOBS, 0), "vmapped": (1, 4, 0)}
-        for dispatch in ("pipelined", "vmapped"):
-            for label in ("cold", "warm"):
-                events = []
-                recorder(events)
-                envelope.LAUNCHES = 0
-                scan.LAUNCHES = 0
-                sos.LAUNCHES = 0
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                start = time.perf_counter()
-                try:
-                    mt.process_batch(jobs(f"{dispatch}_{label}_"), config, dispatch=dispatch, device=device)
-                    torch.cuda.synchronize()
-                finally:
-                    mt.log()
-                wall = time.perf_counter() - start
-                launches = (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
-                require(launches == expected[dispatch],
-                        f"{dispatch} {label} process_batch launched K1, K2 and K3 {launches} times, "
-                        f"not {expected[dispatch]}")
-                runs.append({
-                    "dispatch": dispatch, "run": label, "wall_s": wall, "pairs_per_s": FARM_JOBS / wall,
-                    "audio_s_per_wall_s": audio_seconds / wall, "k1": launches[0], "k2": launches[1],
-                    "k3": launches[2],
-                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-                })
-                print(json.dumps({"farm_run": runs[-1]}), flush=True)
-                if label == "warm":
-                    timelines[dispatch] = [
-                        {"t_s": round(t - start, 4), "event": message[:48]} for t, message in events
-                    ]
-        numbers["runs"] = runs
-        numbers["warm_timelines"] = timelines
-
-        # every job's PCM_16 master against process() on the card
-        worst = 0
-        for i in range(FARM_JOBS):
-            mt.process(at(f"t{i}.wav"), at(f"r{i}.wav"), [mt.pcm16(at(f"single{i}.wav"))], config,
-                       device=device)
-            single, _ = wav.read(at(f"single{i}.wav"), raw_int=True)
-            for dispatch in ("pipelined", "vmapped"):
-                farmed, rate = wav.read(at(f"{dispatch}_warm_{i}.wav"), raw_int=True)
-                require(rate == SR and farmed.shape == single.shape,
-                        f"job {i} ({dispatch}) wrote {farmed.shape} at {rate} Hz, process() {single.shape}")
-                diff = int(np.max(np.abs(farmed.astype(np.int32) - single)))
-                require(diff <= 1, f"job {i} ({dispatch}) is {diff} PCM_16 steps off process()")
-                worst = max(worst, diff)
-        for name in ("_pt.wav", "_pr.wav"):
-            piece, rate = wav.read(at(f"vmapped_warm_{name}"))
-            require(rate == SR and piece.shape == (config.preview_size, 2), f"preview {name} is {piece.shape}")
-        raw, _ = wav.read(at("vmapped_warm_1_raw.wav"))
-        require(bool(np.all(np.isfinite(raw))), "the raw FLOAT variant holds non-finite samples")
-        numbers["max_pcm16_steps_vs_process"] = worst
-
-        # the dynamic graph on staged inputs: no host sync, and batched
-        # against one graph per pair on the same inputs
-        tracks = [(wav.read(at(f"t{i}.wav"), raw_int=True)[0], wav.read(at(f"r{i}.wav"), raw_int=True)[0])
-                  for i in range(FARM_JOBS)]
-        t_batch, t_lens = batch.bucket_pad([t for t, _ in tracks], BUCKET, device=device)
-        r_batch, r_lens = batch.bucket_pad([r for _, r in tracks], BUCKET, device=device)
-        del tracks
-        t_rows, r_rows = RowInts.of(t_lens, device), RowInts.of(r_lens, device)
-        per_pair = [(RowInts.of([a], device), RowInts.of([b], device)) for a, b in zip(t_lens, r_lens)]
-        operators = state.operators_for_config(config, device)
-
-        def batched():
-            return stages.master_graph(t_batch, r_batch, config, operators,
-                                       target_length=t_rows, reference_length=r_rows)
-
-        def pairs():
-            return [stages.master_graph(t_batch[i], r_batch[i], config, operators,
-                                        target_length=a, reference_length=b)
-                    for i, (a, b) in enumerate(per_pair)]
-
-        def wall_ms(fn, reps=3):
-            fn()
+    runs, timelines = [], {}
+    expected = {"pipelined": (FARM_JOBS, 4 * FARM_JOBS, 0), "vmapped": (1, 4, 0)}
+    for dispatch in ("pipelined", "vmapped"):
+        for label in ("cold", "warm"):
+            events = []
+            recorder(events)
+            envelope.LAUNCHES = 0
+            scan.LAUNCHES = 0
+            sos.LAUNCHES = 0
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             start = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            return 1e3 * (time.perf_counter() - start) / reps
+            try:
+                mt.process_batch(jobs(f"{dispatch}_{label}_"), config, dispatch=dispatch, device=device)
+                torch.cuda.synchronize()
+            finally:
+                mt.log()
+            wall = time.perf_counter() - start
+            launches = (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
+            require(launches == expected[dispatch],
+                    f"{dispatch} {label} process_batch launched K1, K2 and K3 {launches} times, "
+                    f"not {expected[dispatch]}")
+            runs.append({
+                "dispatch": dispatch, "run": label, "wall_s": wall, "pairs_per_s": FARM_JOBS / wall,
+                "audio_s_per_wall_s": audio_seconds / wall, "k1": launches[0], "k2": launches[1],
+                "k3": launches[2],
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            })
+            print(json.dumps({"farm_run": runs[-1]}), flush=True)
+            if label == "warm":
+                timelines[dispatch] = [
+                    {"t_s": round(t - start, 4), "event": message[:48]} for t, message in events
+                ]
+    numbers["runs"] = runs
+    numbers["warm_timelines"] = timelines
 
-        numbers["graph_ms"] = {"batched": wall_ms(batched), "pairs": wall_ms(pairs)}
-        numbers["graph_ms"]["batched_again"] = wall_ms(batched)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            batched()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    # every job's PCM_16 master against process() on the card
+    worst = 0
+    for i in range(FARM_JOBS):
+        mt.process(at(f"t{i}.wav"), at(f"r{i}.wav"), [mt.pcm16(at(f"single{i}.wav"))], config,
+                   device=device)
+        single, _ = wav.read(at(f"single{i}.wav"), raw_int=True)
+        for dispatch in ("pipelined", "vmapped"):
+            farmed, rate = wav.read(at(f"{dispatch}_warm_{i}.wav"), raw_int=True)
+            require(rate == SR and farmed.shape == single.shape,
+                    f"job {i} ({dispatch}) wrote {farmed.shape} at {rate} Hz, process() {single.shape}")
+            diff = int(np.max(np.abs(farmed.astype(np.int32) - single)))
+            require(diff <= 1, f"job {i} ({dispatch}) is {diff} PCM_16 steps off process()")
+            worst = max(worst, diff)
+    for name in ("_pt.wav", "_pr.wav"):
+        piece, rate = wav.read(at(f"vmapped_warm_{name}"))
+        require(rate == SR and piece.shape == (config.preview_size, 2), f"preview {name} is {piece.shape}")
+    raw, _ = wav.read(at("vmapped_warm_1_raw.wav"))
+    require(bool(np.all(np.isfinite(raw))), "the raw FLOAT variant holds non-finite samples")
+    numbers["max_pcm16_steps_vs_process"] = worst
+
+    # the dynamic graph on staged inputs: no host sync, and batched
+    # against one graph per pair on the same inputs
+    tracks = [(wav.read(at(f"t{i}.wav"), raw_int=True)[0], wav.read(at(f"r{i}.wav"), raw_int=True)[0])
+              for i in range(FARM_JOBS)]
+    t_batch, t_lens = batch.bucket_pad([t for t, _ in tracks], BUCKET, device=device)
+    r_batch, r_lens = batch.bucket_pad([r for _, r in tracks], BUCKET, device=device)
+    del tracks
+    t_rows, r_rows = RowInts.of(t_lens, device), RowInts.of(r_lens, device)
+    per_pair = [(RowInts.of([a], device), RowInts.of([b], device)) for a, b in zip(t_lens, r_lens)]
+    operators = state.operators_for_config(config, device)
+
+    def batched():
+        return stages.master_graph(t_batch, r_batch, config, operators,
+                                   target_length=t_rows, reference_length=r_rows)
+
+    def pairs():
+        return [stages.master_graph(t_batch[i], r_batch[i], config, operators,
+                                    target_length=a, reference_length=b)
+                for i, (a, b) in enumerate(per_pair)]
+
+    def wall_ms(fn, reps=3):
+        fn()
         torch.cuda.synchronize()
-        numbers["sync_free_master_graph"] = True
-        graph_ms, ops = profile_device(torch, batched)
-        device_ms = sum(o["device_ms"] for o in ops)
-        numbers["graph_profiled"] = {"wall_ms": graph_ms, "device_ms": device_ms,
-                                     "device_busy_share": device_ms / graph_ms, "top_ops": top(ops, 8, 50)}
-        del t_batch, r_batch, operators
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - start) / reps
+
+    numbers["graph_ms"] = {"batched": wall_ms(batched), "pairs": wall_ms(pairs)}
+    numbers["graph_ms"]["batched_again"] = wall_ms(batched)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batched()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    numbers["sync_free_master_graph"] = True
+    graph_ms, ops = profile_device(torch, batched)
+    device_ms = sum(o["device_ms"] for o in ops)
+    numbers["graph_profiled"] = {"wall_ms": graph_ms, "device_ms": device_ms,
+                                 "device_busy_share": device_ms / graph_ms, "top_ops": top(ops, 8, 50)}
+    del t_batch, r_batch, operators
 
     # master_batch on the card (float32) against the CPU (float64)
     lo, hi = BATCH_SNR_SECONDS
@@ -1065,6 +1092,269 @@ def configs_path(mt, torch, device, cuda_ms, kernel_ms, run_process, bandwidth):
     return k3, numbers
 
 
+def distributed_worker(argv) -> None:
+    """Phase 10's full-width worker, one of ``--processes`` (run by
+    ``distributed_path`` as ``chip_smoke.py --distributed-worker ...``): the
+    JAX package's multi-process layout on phase 7's jobs.  Per run (cold,
+    warm): ``initialize``'s group is up; the process decodes and checks
+    only the jobs it owns, agrees the buckets with its peers, pads,
+    masters its rows with ``master_batch_distributed``, pulls them with
+    ``local_results`` and writes each as PCM_16 WAV.  Writes its numbers
+    to ``--report``; raises on any failure."""
+    import argparse
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import matchering_tpu_torch as mt
+    from matchering_tpu_torch.kernels import build, envelope, scan, sos
+    from matchering_tpu_torch.parallel import batch, launch
+
+    parser = argparse.ArgumentParser()
+    for name in ("--process_id", "--processes", "--port"):
+        parser.add_argument(name, type=int, required=True)
+    parser.add_argument("--jobs", required=True)
+    parser.add_argument("--report", required=True)
+    args = parser.parse_args(argv)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    build.library()  # phase 2 built it: loaded, not rebuilt
+    launch.initialize(f"localhost:{args.port}", args.processes, args.process_id, timeout_s=600)
+    try:
+        config = mt.Config()
+        mesh = launch.global_mesh(devices=[device])
+        start, stop = launch.local_pair_slice(mesh, FARM_JOBS)
+        runs = []
+        for label in ("cold", "warm"):
+            envelope.LAUNCHES = scan.LAUNCHES = sos.LAUNCHES = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            begin = time.perf_counter()
+            tracks = {"target": [], "reference": []}
+            for i in range(start, stop):
+                for role, name in (("target", f"t{i}.wav"), ("reference", f"r{i}.wav")):
+                    audio, rate = mt.load(os.path.join(args.jobs, name), role, args.jobs, raw_int=True)
+                    tracks[role].append(mt.check(audio, rate, config, role, device=device)[0])
+            buckets = {role: launch.agree_bucket(max(len(t) for t in rows), BUCKET)
+                       for role, rows in tracks.items()}
+            # each role's bucket is the agreed one: pad to it as the multiple
+            t_batch, t_lens = batch.bucket_pad(tracks["target"], buckets["target"], device=device)
+            r_batch, r_lens = batch.bucket_pad(tracks["reference"], buckets["reference"], device=device)
+            out = launch.master_batch_distributed(t_batch, r_batch, t_lens, r_lens, config, mesh)
+            for row, result in launch.local_results(out):
+                mt.save(os.path.join(args.jobs, f"dist_{label}_{row}.wav"), result[: t_lens[row - start]],
+                        SR, "PCM_16")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - begin
+            runs.append({
+                "run": label, "wall_s": wall, "pairs_per_s": (stop - start) / wall,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "k1": envelope.LAUNCHES, "k2": scan.LAUNCHES, "k3": sos.LAUNCHES,
+                "buckets": buckets, "bucket_shapes": [list(t_batch.shape), list(r_batch.shape)],
+            })
+            del t_batch, r_batch, out, tracks
+        report = {"process": args.process_id, "processes": args.processes, "rows": [start, stop],
+                  "mesh": dict(mesh.shape), "kernels_rebuilt": build.build_seconds is not None,
+                  "runs": runs}
+        with open(args.report, "w") as f:
+            json.dump(report, f)
+    finally:
+        launch.shutdown()
+
+
+def distributed_path(torch, here, farm_dir, farm):
+    """Phase 10: multi-process runs on the card (see the module's
+    docstring).  ``farm_dir`` holds phase 7's jobs and ``process()``'s file
+    for each; ``farm``, phase 7's numbers.  Returns the phase's numbers
+    and the per-process (K1, K2, K3) launches of the full-width run; fails
+    on any mismatch."""
+    from matchering_tpu_torch.io import wav
+    from matchering_tpu_torch.parallel import launch
+
+    numbers = {}
+    torch.cuda.empty_cache()  # the workers share the card with this process
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        # (a) the package's self-test, float32 on the card against the
+        # single-process float64 master on the card
+        selftests = []
+        for label, extra in (("pairs", ["--devices_per_process", "1"]),
+                             ("pairs_time", ["--devices_per_process", "2", "--time", "2"])):
+            report = os.path.join(tmp, label)
+            start = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "matchering_tpu_torch.parallel.launch", "selftest",
+                 "--processes", "2", *extra, "--device", "cuda", "--dtype", "float32",
+                 "--report_path", report, "--timeout", "300"],
+                cwd=here, capture_output=True, text=True, timeout=360,
+            )
+            require(run.returncode == 0,
+                    f"the {label} self-test exited {run.returncode}: {run.stderr.strip()[-2000:]}")
+            rows = [json.load(open(f"{report}.proc{p}.json")) for p in range(2)]
+            for row in rows:
+                require(row["min_snr_db"] is not None and row["min_snr_db"] >= SNR_GATE_DB,
+                        f"the {label} self-test's process {row['process']}: {row['min_snr_db']} dB "
+                        f"< {SNR_GATE_DB} dB")
+            selftests.append({"mesh": label, "command_s": time.perf_counter() - start, "processes": [
+                {k: row[k] for k in ("process", "device", "devices_per_process", "time_axis", "owned_rows",
+                                     "bucket_samples", "agreed_bucket", "wall_s", "min_snr_db")}
+                for row in rows]})
+            print(json.dumps({"selftest": selftests[-1]}), flush=True)
+        numbers["selftests"] = selftests
+
+        # (b) two processes on the JAX layout at full width, phase 7's jobs
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        env = launch.worker_env(2)
+        reports = [os.path.join(tmp, f"worker{p}.json") for p in range(2)]
+        workers = [
+            subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--distributed-worker", "--process_id", str(p),
+                 "--processes", "2", "--port", str(port), "--jobs", farm_dir, "--report", reports[p]],
+                cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for p in range(2)
+        ]
+        start = time.perf_counter()
+        try:
+            outputs = [w.communicate(timeout=600) for w in workers]
+        finally:
+            for w in workers:
+                if w.poll() is None:
+                    w.kill()
+                    w.wait()
+        command_s = time.perf_counter() - start
+        for p, (w, (_, err)) in enumerate(zip(workers, outputs)):
+            require(w.returncode == 0, f"distributed worker {p} exited {w.returncode}: {err.strip()[-2000:]}")
+        processes = [json.load(open(path)) for path in reports]
+    want_buckets = {
+        role: -(-int(max(np.floor(np.asarray(farm[f"{role}_seconds"]) * SR))) // BUCKET) * BUCKET
+        for role in ("target", "reference")
+    }
+    worst = 0
+    for report in processes:
+        require(not report["kernels_rebuilt"], f"process {report['process']} rebuilt the kernels")
+        for run in report["runs"]:
+            launches = (run["k1"], run["k2"], run["k3"])
+            require(launches == (1, 4, 0),
+                    f"process {report['process']} ({run['run']}) launched K1, K2 and K3 {launches} times, "
+                    "not (1, 4, 0)")
+            require(run["buckets"] == want_buckets,
+                    f"process {report['process']} agreed on buckets {run['buckets']}, not {want_buckets}")
+        for row in range(*report["rows"]):
+            single, _ = wav.read(os.path.join(farm_dir, f"single{row}.wav"), raw_int=True)
+            for label in ("cold", "warm"):
+                got, rate = wav.read(os.path.join(farm_dir, f"dist_{label}_{row}.wav"), raw_int=True)
+                require(rate == SR and got.shape == single.shape,
+                        f"job {row} ({label}) wrote {got.shape} at {rate} Hz, process() {single.shape}")
+                diff = int(np.max(np.abs(got.astype(np.int32) - single)))
+                require(diff <= 1, f"job {row} ({label}) is {diff} PCM_16 steps off process()")
+                worst = max(worst, diff)
+        for run in report["runs"]:
+            print(f"process {report['process']} rows {report['rows']} {run['run']}: {run['wall_s']:.4f} s, "
+                  f"{run['pairs_per_s']:.4f} pairs/s, peak {run['max_memory_allocated_bytes']} B, "
+                  f"K1 {run['k1']}, K2 {run['k2']}, K3 {run['k3']}", flush=True)
+    numbers["full_width"] = {"jobs": FARM_JOBS, "want_buckets": want_buckets, "command_s": command_s,
+                             "max_pcm16_steps_vs_process": worst, "processes": processes}
+    warm = [next(r for r in report["runs"] if r["run"] == "warm") for report in processes]
+    return numbers, [(r["k1"], r["k2"], r["k3"]) for r in warm]
+
+
+def codecs_path(mt, run_process, phase4):
+    """Phase 11: the native codec and the lossy libraries (see the module's
+    docstring).  ``phase4``: the paths of phase 4's target, reference and
+    ``process()`` output.  Returns the phase's numbers; fails on any
+    mismatch."""
+    from matchering_tpu_torch.io import codecs, wav
+    from matchering_tpu_torch.io.native import binding, mp3, opus, vorbis
+
+    target_path, reference_path, process_out = phase4
+    # phase 4's first file loaded the codec, building it where it was missing
+    require(binding.available(), "the native codec did not build (see the debug log)")
+    numbers = {"native_build_s": binding.build_seconds, "library": binding._lib_path()}
+    result, rate = codecs.read(process_out)
+    require(rate == SR and result.shape == (FULL_N, 2), f"phase 4's result is {result.shape} at {rate} Hz")
+
+    def best_s(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            begin = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - begin)
+        return min(times)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codecs_") as tmp:
+        def at(name):
+            return os.path.join(tmp, name)
+
+        # the FLAC round trip: the same PCM codes as WAV, at 16 and 24 bits
+        roundtrip = {}
+        for subtype in ("PCM_16", "PCM_24"):
+            codecs.write(at(f"r.{subtype}.wav"), result, SR, subtype)
+            codecs.write(at(f"r.{subtype}.flac"), result, SR, subtype)
+            want, _ = wav.read(at(f"r.{subtype}.wav"), raw_int=True)
+            got, got_rate = codecs.read(at(f"r.{subtype}.flac"))
+            scale = 2.0 ** (15 if subtype == "PCM_16" else 23)
+            if subtype == "PCM_24":
+                want = want >> 8  # the 24-bit codes, stored in the top of int32
+            codes = np.rint(got * scale).astype(np.int64)
+            require(got_rate == SR and codes.shape == want.shape and np.array_equal(codes, want),
+                    f"FLAC {subtype} does not round-trip phase 4's result exactly")
+            roundtrip[subtype] = {"wav_bytes": os.path.getsize(at(f"r.{subtype}.wav")),
+                                  "flac_bytes": os.path.getsize(at(f"r.{subtype}.flac"))}
+        numbers["flac_roundtrip_exact"] = roundtrip
+
+        # encode and decode times on the 180 s result (host)
+        numbers["times_s"] = {
+            "wav_pcm16_encode_native": best_s(lambda: binding.write_wav(at("n.wav"), result, SR, "PCM_16")),
+            "wav_pcm16_encode_numpy": best_s(lambda: wav.write(at("p.wav"), result, SR, "PCM_16")),
+            "flac_pcm16_encode": best_s(lambda: binding.write_flac(at("f.flac"), result, SR, "PCM_16")),
+            "flac_pcm16_decode": best_s(lambda: binding.read_flac(at("f.flac"))),
+            "wav_pcm16_decode_native": best_s(lambda: binding.read_wav(at("n.wav"))),
+            "wav_pcm16_decode_numpy": best_s(lambda: wav.read(at("p.wav"))),
+        }
+        require(open(at("n.wav"), "rb").read() == open(at("p.wav"), "rb").read(),
+                "the native and numpy PCM_16 WAV writers disagree")
+
+        # process() from a FLAC target to a FLAC PCM_24 result, against WAV
+        target, _ = codecs.read(target_path)
+        codecs.write(at("t.flac"), target, SR, "PCM_16")
+        del target
+        runs, events = [], []
+        run_process("wav", runs, events, target_path, reference_path, [mt.pcm24(at("o.wav"))])
+        run_process("flac", runs, events, at("t.flac"), reference_path, [mt.Result(at("o.flac"), "PCM_24")])
+        from_wav, _ = codecs.read(at("o.wav"))
+        from_flac, flac_rate = codecs.read(at("o.flac"))
+        require(flac_rate == SR and from_flac.shape == from_wav.shape == (FULL_N, 2),
+                f"the FLAC run wrote {from_flac.shape} at {flac_rate} Hz")
+        steps = float(np.max(np.abs(from_flac - from_wav))) * 2.0**23
+        require(steps <= 1.0, f"the FLAC run is {steps} PCM_24 steps off the WAV run")
+        numbers["process_flac"] = {"runs": runs, "max_pcm24_steps_vs_wav": steps}
+
+        # the lossy libraries: reported, round-tripped where they load
+        piece = result[: 10 * SR]
+        lossy = {"vorbis": vorbis.available(), "mp3_read": mp3.available(),
+                 "mp3_write": mp3.write_available(), "opus_read": opus.available(),
+                 "opus_write": opus.write_available()}
+        for ext, subtype, ok in (("ogg", "VORBIS", lossy["vorbis"]),
+                                 ("mp3", "MPEG_LAYER_III", lossy["mp3_read"] and lossy["mp3_write"]),
+                                 ("opus", "OPUS", lossy["opus_read"] and lossy["opus_write"])):
+            if not ok:
+                lossy[f"{ext}_roundtrip"] = "library missing"
+                continue
+            codecs.write(at(f"l.{ext}"), piece, SR, subtype)
+            decoded, decoded_rate = codecs.read(at(f"l.{ext}"))
+            require(decoded.ndim == 2 and decoded.shape[1] == 2 and bool(np.all(np.isfinite(decoded)))
+                    and decoded.shape[0] >= 0.9 * 10 * decoded_rate,
+                    f"{ext} decoded to {decoded.shape} at {decoded_rate} Hz")
+            lossy[f"{ext}_roundtrip"] = {"rate": decoded_rate, "frames": decoded.shape[0],
+                                         "bytes": os.path.getsize(at(f"l.{ext}"))}
+        numbers["lossy"] = lossy
+        print(f"lossy libraries: {json.dumps(lossy)}", flush=True)
+    return numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -1420,7 +1710,9 @@ def main() -> None:
 
         mt.log(info_handler=record, warning_handler=record, debug_handler=record)
 
-    farm = farm_path(mt, torch, device, config, recorder)
+    # phase 10 reads phase 7's jobs and files again: the folder lives to the end of the run
+    farm_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_farm_")
+    farm = farm_path(mt, torch, device, config, recorder, farm_dir.name)
     print(json.dumps({"farm_path": farm}), flush=True)
     launches = {(r["dispatch"], r["run"]): (r["k1"], r["k2"]) for r in farm["runs"]}
     for index, numbers in enumerate((k1_batched, k2_batched)):
@@ -1436,13 +1728,25 @@ def main() -> None:
     # --- 9. the time-sharded path: limit_sharded, the long form, master_farm, --time_sharded ---
     sharded = timeshard_path(mt, torch, device, config, here, cuda_ms, (target_path, reference_path, out_path))
     print(json.dumps({"timeshard_path": sharded}), flush=True)
-    workdir.cleanup()
-    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matchering_tpu")]
-    require(not leaked, f"the port imported {leaked} on its way")
     for numbers, launches in zip((k1, k2, k3), SHARDED_LAUNCHES):
         numbers["launches_sharded"] = launches  # one sharded limit() on one card
 
-    # --- 10. results ---
+    # --- 10. multi-process: the package's self-tests, then two processes at full width ---
+    distributed, per_process = distributed_path(torch, here, farm_dir.name, farm)
+    print(json.dumps({"distributed_path": distributed}), flush=True)
+    farm_dir.cleanup()
+    for index, numbers in enumerate((k1, k2, k3)):
+        # each process's warm run of master_batch_distributed over its 4 rows
+        numbers["launches_distributed"] = [launches[index] for launches in per_process]
+
+    # --- 11. the codecs: FLAC, the native WAV writer, the lossy libraries ---
+    codecs = codecs_path(mt, run_process, (target_path, reference_path, out_path))
+    print(json.dumps({"codecs_path": codecs}), flush=True)
+    workdir.cleanup()
+    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matchering_tpu")]
+    require(not leaked, f"the port imported {leaked} on its way")
+
+    # --- 12. results ---
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({
         "ok": True,
@@ -1455,4 +1759,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        distributed_worker(sys.argv[2:])
+    else:
+        main()

@@ -1,7 +1,7 @@
-"""Host-side audio I/O for the port: the numpy WAV/RF64, AIFF, W64 and CAF
-codecs, the codec registry, loader and saver.  FLAC, the lossy codecs and
-the ffmpeg fallback are not ported: loading such a file raises a coded
-``ModuleError``."""
+"""Host-side audio I/O for the port: the native WAV/FLAC codec
+(``native``), the numpy WAV/RF64, AIFF, W64 and CAF codecs, the system
+Vorbis, MP3 and Opus libraries, the codec registry, the loader (with its
+ffmpeg fallback) and the saver."""
 
 from . import codecs, pcm, wav
 from .loader import load

@@ -1,43 +1,118 @@
-"""Audio ingestion (reference ``matchering/loader.py:30-74``).
+"""Audio ingestion: native decoders first, transcoding as a safety net.
 
-The numpy codecs (``codecs.read``: WAV/RF64, AIFF, W64, CAF) decode the
-file; anything they cannot parse raises the role's coded ``ModuleError``.
-The ffmpeg fallback of ``matchering_tpu.io.loader`` and its lossy-source
-advisories are not ported.
+Counterpart of ``matchering_tpu.io.loader`` (reference
+``matchering/loader.py:30-74``): any container the built-in codecs
+understand decodes directly (``codecs.read``: the native WAV and FLAC
+codec, the numpy containers, the system lossy libraries); anything else is
+handed to an ``ffmpeg`` subprocess that rewrites it into a temporary WAV.
+A lossy source fires the role's advisory (``WARNING_TARGET_IS_LOSSY``,
+``INFO_REFERENCE_IS_LOSSY``), and a coded ``ModuleError`` fires only after
+every strategy is exhausted.
+
+Structure is a decode chain: each strategy either returns ``(audio, rate)``
+or ``None`` to let the next one try.
 """
 
 from __future__ import annotations
 
+import os
 import struct
-from typing import Tuple
+import subprocess
+import tempfile
+from typing import Optional, Tuple
 
 import numpy as np
 
-from ..log import Code, ModuleError, debug
+from ..log import Code, ModuleError, debug, info, warning
+from ..utils import random_file
 from . import codecs
 
 _LOAD_ERRORS = {"TARGET": Code.ERROR_TARGET_LOADING, "REFERENCE": Code.ERROR_REFERENCE_LOADING}
+_LOSSY_EVENTS = {
+    "TARGET": lambda: warning(Code.WARNING_TARGET_IS_LOSSY),
+    "REFERENCE": lambda: info(Code.INFO_REFERENCE_IS_LOSSY),
+}
+# what a codec raises on a file it cannot parse (the numpy containers raise
+# ValueError and struct.error on truncated headers)
+_DECODE_ERRORS = (RuntimeError, OSError, ValueError, struct.error)
+
+
+def _is_unknown_container(error: Exception) -> bool:
+    """True when the codec layer rejected the *container*, i.e.
+    transcoding could still succeed (as opposed to e.g. a truncated file)."""
+    text = str(error)
+    return "unknown format" in text or "Format not recognised" in text
+
+
+def _decode_native(file: str, role: str, temp_folder: str, raw_int: bool):
+    try:
+        decoded = codecs.read(file, raw_int=raw_int)
+    except _DECODE_ERRORS as error:
+        debug(error)
+        return None if _is_unknown_container(error) else _raise_load_error(role)
+    if codecs.is_lossy_container(file):
+        _LOSSY_EVENTS[role]()
+    return decoded
+
+
+def _decode_via_ffmpeg(file: str, role: str, temp_folder: str, raw_int: bool):
+    """Transcode with ffmpeg into a temp WAV, decode that, clean up."""
+    debug(f"Unknown container — transcoding '{file}' through ffmpeg")
+    staging = os.path.join(temp_folder, random_file(prefix="temp"))
+    try:
+        subprocess.check_call(
+            ["ffmpeg", "-i", file, staging],
+            stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL,
+        )
+    except FileNotFoundError:
+        debug("no ffmpeg binary on PATH — cannot transcode unknown containers")
+        return None
+    except subprocess.CalledProcessError:
+        debug(f"ffmpeg could not produce a WAV from '{file}'")
+        return None
+    try:
+        decoded = codecs.read(staging, raw_int=raw_int)
+    except _DECODE_ERRORS as error:
+        # a WAV flavour the codecs cannot parse: stay inside the chain's
+        # contract (a coded ModuleError, not a raw exception)
+        debug(error)
+        return None
+    finally:
+        if os.path.exists(staging):
+            os.remove(staging)
+    _LOSSY_EVENTS[role]()
+    return decoded
+
+
+def _raise_load_error(role: str):
+    raise ModuleError(_LOAD_ERRORS[role])
+
+
+_DECODE_CHAIN = (_decode_native, _decode_via_ffmpeg)
 
 
 def load(
-    file: str, file_type: str, temp_folder: str = None, raw_int: bool = False
+    file: str, file_type: str, temp_folder: Optional[str] = None, raw_int: bool = False
 ) -> Tuple[np.ndarray, int]:
     """Decode ``file`` into a float64 (n, ch) array + sample rate.
 
     ``file_type`` names the track's role ("target"/"reference") and selects
-    the coded error raised on failure.  ``temp_folder`` is where a
-    transcoding fallback would stage its files; the port has none, so it is
-    accepted for the JAX package's signature and unused.  ``raw_int=True``
-    keeps integer-PCM WAV payloads as unscaled int16/int32 codes:
-    ``process()`` stages those to the device as they are and converts there
-    (``ops.basics.to_working_float``).
+    which coded events fire on failure or lossy input.  ``temp_folder``:
+    where the ffmpeg fallback stages its WAV (the system's temporary folder
+    if None).  ``raw_int=True`` keeps integer-PCM WAV payloads as unscaled
+    int16/int32 codes: ``process()`` stages those to the device as they are
+    and converts there (``ops.basics.to_working_float``).
     """
     role = file_type.upper()
     debug(f"Decoding the {role} track from '{file}'")
-    try:
-        audio, rate = codecs.read(file, raw_int=raw_int)
-    except (RuntimeError, OSError, ValueError, struct.error) as error:
-        debug(error)
-        raise ModuleError(_LOAD_ERRORS[role]) from error
-    debug(f"{role} decoded: {audio.shape[0]} samples at {rate} Hz")
-    return audio, rate
+    folder = tempfile.gettempdir() if temp_folder is None else temp_folder
+    decoded: Optional[Tuple[np.ndarray, int]] = None
+    for strategy in _DECODE_CHAIN:
+        decoded = strategy(file, role, folder, raw_int)
+        if decoded is not None:
+            break
+    if decoded is None:
+        _raise_load_error(role)
+    debug(f"{role} decoded: {decoded[0].shape[0]} samples at {decoded[1]} Hz")
+    return decoded

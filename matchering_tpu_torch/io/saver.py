@@ -1,5 +1,5 @@
 """Audio export (reference ``matchering/saver.py:27-33``) through
-``codecs.write``: WAV, AIFF, W64 or CAF by the file's extension."""
+``codecs.write``, the container chosen by the file's extension."""
 
 from __future__ import annotations
 

@@ -10,13 +10,13 @@ Counterpart of ``matchering_tpu.parallel``:
                   (``master_pairs``);
 * ``timeshard`` — one track's time axis cut over a list of devices
                   (``master_sharded``; ``master_farm`` over a ``(pairs,
-                  time)`` mesh), driven from one process.
-
-Multi-host runs (the JAX package's ``launch``) are not ported yet
-(``ROADMAP.md``).
+                  time)`` mesh), driven from one process;
+* ``launch``    — several processes or hosts on ``torch.distributed``:
+                  each masters the pairs it owns (``global_mesh``,
+                  ``master_batch_distributed``, ``master_farm_distributed``).
 """
 
-from . import batch, mesh, timeshard
+from . import batch, launch, mesh, timeshard
 from .batch import bucket_pad, master_batch, master_pairs
 from .mesh import make_mesh
 from .timeshard import master_sharded
@@ -24,6 +24,7 @@ from .timeshard import master_sharded
 __all__ = [
     "batch",
     "bucket_pad",
+    "launch",
     "make_mesh",
     "master_batch",
     "master_pairs",

@@ -2,8 +2,9 @@
 
 A :class:`Result` names an output file, its PCM subtype and which processing
 variant feeds it (limited / no-limiter / no-limiter-normalized).  The
-formats and subtypes accepted are those ``io.codecs`` writes: WAV, AIFF,
-W64 and CAF.
+formats and subtypes accepted are those ``io.codecs.check_format`` accepts
+on this host: WAV, AIFF, W64 and CAF always, FLAC with the native codec
+built, OGG, MP3 and OPUS through the system libraries or ffmpeg.
 """
 
 from __future__ import annotations

@@ -45,7 +45,7 @@ def pairs(tmp_path_factory):
 
 def _jobs(package, pairs, folder, tag):
     """Job 0 asks for a raw FLOAT variant beside its PCM_16 master, job 1
-    for both previews (WAV: the port writes no FLAC yet)."""
+    for both previews."""
     jobs = []
     for i, (tp, rp) in enumerate(pairs):
         results = [package.pcm16(str(folder / f"{tag}{i}.wav"))]

@@ -44,18 +44,29 @@ def test_writer_bytes_and_reader_match_jax(tmp_path, ext, subtype):
 
 
 def test_write_table_is_jax_table_without_unported_codecs():
-    for fmt in ("WAV", "AIFF", "AIF", "W64", "CAF"):
-        assert tcodecs._WRITE_FORMATS[fmt] == jcodecs._WRITE_FORMATS[fmt]
-    assert set(tcodecs._WRITE_FORMATS) == {"WAV", "AIFF", "AIF", "W64", "CAF"}
+    """Every codec is ported: the write tables are the JAX package's."""
+    assert tcodecs._WRITE_FORMATS == jcodecs._WRITE_FORMATS
+    assert tcodecs._FFMPEG_WRITE_FORMATS == jcodecs._FFMPEG_WRITE_FORMATS
 
 
-@pytest.mark.parametrize("name", ["o.wav", "o.aiff", "o.aif", "o.w64", "o.caf"])
+@pytest.mark.parametrize("name", ["o.wav", "o.aiff", "o.aif", "o.w64", "o.caf", "o.flac"])
 def test_result_accepts_ported_containers(name):
     assert mt.pcm24(name).subtype == "PCM_24"
 
 
 @pytest.mark.parametrize("name,subtype", [
-    ("o.flac", "PCM_16"), ("o.mp3", "MPEG_LAYER_III"), ("o.aiff", "DOUBLE"), ("o.xyz", "PCM_16"),
+    ("o.flac", "PCM_16"), ("o.flac", "PCM_24"), ("o.mp3", "MPEG_LAYER_III"), ("o.ogg", "VORBIS"),
+    ("o.opus", "OPUS"),
+])
+def test_result_accepts_flac_and_lossy_formats(name, subtype):
+    """FLAC through the port's native codec (built here with g++), the
+    lossy formats through the system libraries or ffmpeg, as in the JAX
+    package."""
+    assert mt.Result(name, subtype).subtype == subtype
+
+
+@pytest.mark.parametrize("name,subtype", [
+    ("o.flac", "PCM_32"), ("o.aiff", "DOUBLE"), ("o.xyz", "PCM_16"), ("o.ogg", "PCM_16"),
 ])
 def test_result_refuses_unported_formats(name, subtype):
     with pytest.raises(TypeError):

@@ -169,6 +169,8 @@ def test_process_without_device_raises_when_cuda_is_absent(tmp_path, monkeypatch
 
 
 def test_non_wav_input_raises_coded_error(tmp_path):
+    """A truncated FLAC: the native codec rejects it, no ffmpeg can
+    transcode it, and the role's coded error fires."""
     (tmp_path / "t.flac").write_bytes(b"fLaC" + bytes(64))
     with pytest.raises(mt.ModuleError) as error:
         mt.load(str(tmp_path / "t.flac"), "target")
@@ -177,10 +179,17 @@ def test_non_wav_input_raises_coded_error(tmp_path):
 
 def test_import_loads_no_jax():
     code = (
-        "import sys, matchering_tpu_torch, matchering_tpu_torch.farm, "
-        "matchering_tpu_torch.parallel.batch; "
+        "import os, sys, matchering_tpu_torch, matchering_tpu_torch.farm, "
+        "matchering_tpu_torch.parallel.batch, matchering_tpu_torch.parallel.launch, "
+        "matchering_tpu_torch.io.native.binding, matchering_tpu_torch.io.native.build, "
+        "matchering_tpu_torch.io.native.mp3, matchering_tpu_torch.io.native.opus, "
+        "matchering_tpu_torch.io.native.vorbis; "
+        "assert matchering_tpu_torch.io.native.binding.available(); "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'matchering_tpu')]; "
-        "assert not bad, bad"
+        "assert not bad, bad; "
+        "maps = open('/proc/self/maps').read() if os.path.exists('/proc/self/maps') else ''; "
+        "assert os.path.join('matchering_tpu', 'io', 'native') not in maps, 'loaded the JAX codec'; "
+        "assert 'libmtpu_codec_' in maps or not maps"
     )
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=repo, timeout=120)
