@@ -32,10 +32,14 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
 4. writes a 180 s PCM_16 WAV pair made from a seed and runs
    ``process()`` on it on the card twice (cold, warm), counting kernel
    launches per run (1 K1, 4 K2 and 0 K3 with ``Config()``), and checks
-   the written file; prints the warm run's timeline of log events and a
-   profile of one ``master`` call (device time by op, and the device's
-   busy share of its wall time), in which each K2 call must be a single
-   kernel;
+   the written file; prints the warm run's timeline of log events, the
+   bytes one more warm run copies each way, counted under the profiler
+   by a dispatch mode beside the trace's copy records (about one copy of
+   each track to the card, one float32 copy of the result back)
+   and a profile of one ``master`` call (device time by op, and the
+   device's busy share of its wall time), in which each K2 call must be a
+   single kernel.  In every ``process()`` and ``process_batch`` run of
+   the script the equality check must compare CUDA tensors;
 5. compares ``master`` on the card (float32) with the port's own
    ``master`` on the CPU at float64 on a 30 s pair: at least 95 dB SNR;
 6. the user path: writes a 180 s PCM_16 target at 44.1 kHz and a 180 s
@@ -43,7 +47,9 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    against the same call on the CPU (max abs error 1e-12) and times it and
    its matrix product beside their flop and byte bounds; runs
    ``process()`` twice (cold, warm) with both previews and a PCM_24 AIFF
-   result, counting kernel launches, and prints the warm run's timeline;
+   result, counting kernel launches, and prints the warm run's timeline
+   and the bytes a third run copies each way (each track once; the
+   float32 master and preview pieces back);
    checks that the preview window chosen on the card is the one the CPU
    chooses on the card's result; runs ``python3 -m matchering_tpu_torch``
    on the pair and checks its outputs;
@@ -54,6 +60,8 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    warm), with the kernel launches counted per run (8 K1 and 32 K2
    pipelined, 1 and 4 vmapped, no K3), its wall time, pairs and audio seconds per
    wall second, peak device memory and the warm runs' event timelines;
+   the bytes one more run of each dispatch copies each way (each job's
+   tracks once; one float32 copy per written variant and preview piece);
    holds every job's PCM_16 file to what ``process()`` on the card writes
    for the pair (one LSB); runs the dynamic ``master_graph`` on the staged
    batch under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync),
@@ -111,8 +119,10 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    codes as WAV; ``process()`` from a FLAC target to a FLAC PCM_24 result
    within one PCM_24 step of the WAV run; the PCM_16 WAV encode by the
    native and by the numpy writer (byte-identical), the FLAC encode and
-   decode, timed on the host; which lossy libraries load, and a round
-   trip through each that does (missing ones are reported, not failed);
+   decode, timed on the host; the FLAC run's warm timeline and the bytes
+   one more run copies each way (the float64 FLAC target once); which
+   lossy libraries load, and a round trip through each that does
+   (missing ones are reported, not failed);
 12. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
    kernel's batched numbers from phases 3, 7 and 8, its launches in one
    sharded ``limit()`` (phase 9) and per process of phase 10's full-width
@@ -257,6 +267,118 @@ def top(ops, count, width):
     return [{**o, "op": o["op"][:width]} for o in ops[:count]]
 
 
+# (target, reference) device types of each check_equality call of process()
+# and process_batch (``watch_equality``), cleared before each run
+EQUALITY_INPUTS = []
+
+
+def watch_equality(torch):
+    """Route the host shell's ``check_equality`` (``core``, ``farm``)
+    through a spy that records its inputs' device types in
+    ``EQUALITY_INPUTS``, then runs it."""
+    from matchering_tpu_torch import core, farm
+
+    for module in (core, farm):
+        def spy(target, reference, real=module.check_equality):
+            EQUALITY_INPUTS.append(tuple(
+                a.device.type if isinstance(a, torch.Tensor) else type(a).__name__
+                for a in (target, reference)
+            ))
+            return real(target, reference)
+
+        module.check_equality = spy
+
+
+def require_equality_on_card(label, calls):
+    """The run's ``calls`` equality checks each compared two CUDA tensors."""
+    require(EQUALITY_INPUTS == [("cuda", "cuda")] * calls,
+            f"{label}: the equality check's inputs were {EQUALITY_INPUTS}, not {calls} pairs of CUDA tensors")
+
+
+def transfer_bytes(torch, fn):
+    """The host-to-device and device-to-host copies of one call of ``fn``
+    under the profiler, counted two ways.  The count that is checked
+    (``h2d_bytes``, ``d2h_bytes`` and their copies) comes from a dispatch
+    mode that sees every tensor op of the call: each ``_to_copy`` and
+    ``copy_`` between the host and the card, and each scalar read back
+    (``_local_scalar_dense``), at the bytes of its source.  The
+    profiler's trace gives ``profiled``: the bytes of its copy records
+    (``gpu_memcpy``, each record's ``bytes``), each copy of a MB or more,
+    and the runtime copy calls that have no record.  In this script's
+    process the trace has lacked the records of a session's first
+    host-to-device copies while their runtime calls were there, so it
+    only stands beside the count."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    moved = {"h2d_bytes": 0, "h2d_copies": 0, "d2h_bytes": 0, "d2h_copies": 0}
+
+    class CopyCounter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is aten._to_copy.default:
+                src, dst = args[0].device.type, out.device.type
+            elif func is aten.copy_.default:
+                src, dst = args[1].device.type, args[0].device.type
+            elif func is aten._local_scalar_dense.default:
+                src, dst = args[0].device.type, "cpu"
+            else:
+                return out
+            way = {("cpu", "cuda"): "h2d", ("cuda", "cpu"): "d2h"}.get((src, dst))
+            if way:
+                source = args[1] if func is aten.copy_.default else args[0]
+                moved[f"{way}_bytes"] += source.numel() * source.element_size()
+                moved[f"{way}_copies"] += 1
+            return out
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with CopyCounter():
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    records = {e["args"].get("correlation"): e for e in events if e.get("cat") == "gpu_memcpy"}
+    calls = [e for e in events if e.get("cat") == "cuda_runtime" and str(e.get("name", "")).startswith("cudaMemcpy")]
+    profiled = {"h2d_bytes": 0, "d2h_bytes": 0, "large": [],
+                "unrecorded_copies": sum(e["args"].get("correlation") not in records for e in calls)}
+    for event in records.values():
+        way = "h2d" if "HtoD" in event["name"] else "d2h" if "DtoH" in event["name"] else None
+        if way:
+            nbytes = int(event["args"]["bytes"])
+            profiled[f"{way}_bytes"] += nbytes
+            if nbytes >= 1 << 20:
+                profiled["large"].append({"copy": event["name"], "bytes": nbytes, "us": event.get("dur")})
+    moved["profiled"] = profiled
+    return moved
+
+
+def traced_run(torch, label, fn, pairs, tracks_bytes, written_bytes):
+    """One more warm run of ``fn`` (``process()`` or ``process_batch``
+    on ``pairs`` pairs) with its copies counted (``transfer_bytes``): its
+    equality checks must compare CUDA tensors, and it must copy about one
+    copy of each track to the card (``tracks_bytes``, as decoded; scalars
+    and small tables on top) and one float32 copy of each written variant
+    and preview piece back (``written_bytes``; scalars on top).  Returns
+    the counts."""
+    def run():
+        EQUALITY_INPUTS.clear()
+        fn()
+
+    moved = transfer_bytes(torch, run)
+    require_equality_on_card(label, pairs)
+    moved.update(tracks_bytes=tracks_bytes, written_bytes=written_bytes,
+                 h2d_per_track_copy=moved["h2d_bytes"] / tracks_bytes,
+                 d2h_per_written_copy=moved["d2h_bytes"] / written_bytes)
+    require(tracks_bytes <= moved["h2d_bytes"] <= 1.25 * tracks_bytes,
+            f"{label}: {moved['h2d_bytes']} bytes crossed to the card for {tracks_bytes} bytes of tracks: {moved}")
+    require(written_bytes <= moved["d2h_bytes"] <= 1.1 * written_bytes,
+            f"{label}: {moved['d2h_bytes']} bytes came back for {written_bytes} bytes written: {moved}")
+    return moved
+
+
 def user_path(mt, torch, device, config, here, cuda_ms, run_process, bandwidth, f64_flops):
     """Phase 6: the inputs and outputs users send (see the module's
     docstring).  Returns the phase's numbers; fails on any mismatch."""
@@ -318,6 +440,15 @@ def user_path(mt, torch, device, config, here, cuda_ms, run_process, bandwidth, 
         numbers["process"] = runs
         numbers["realtime_factor_warm"] = FULL_SECONDS / runs[-1]["wall_s"]
         numbers["warm_timeline"] = timeline
+        # the int16 target and the int32 (PCM_24) reference in; the float32
+        # master and its two preview pieces out
+        numbers["transfers"] = traced_run(
+            torch, "user path process()",
+            lambda: mt.process(path["t.wav"], path["r48.wav"], [mt.pcm24(path["master.aiff"])], config,
+                               mt.pcm16(path["pt.wav"]), mt.pcm16(path["pr.wav"]), device="cuda"),
+            1, FULL_N * 2 * 2 + FULL_SECONDS * USER_RATE * 2 * 4,
+            FULL_N * 2 * 4 + 2 * config.preview_size * 2 * 4,
+        )
         master, rate = codecs.read(path["master.aiff"])
         require(rate == SR and master.shape == (FULL_N, 2), f"the AIFF master is {master.shape} at {rate} Hz")
         require(bool(np.all(np.isfinite(master))), "the AIFF master holds non-finite samples")
@@ -523,6 +654,7 @@ def farm_path(mt, torch, device, config, recorder, tmp):
             envelope.LAUNCHES = 0
             scan.LAUNCHES = 0
             sos.LAUNCHES = 0
+            EQUALITY_INPUTS.clear()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             start = time.perf_counter()
@@ -536,6 +668,7 @@ def farm_path(mt, torch, device, config, recorder, tmp):
             require(launches == expected[dispatch],
                     f"{dispatch} {label} process_batch launched K1, K2 and K3 {launches} times, "
                     f"not {expected[dispatch]}")
+            require_equality_on_card(f"{dispatch} {label} process_batch", FARM_JOBS)
             runs.append({
                 "dispatch": dispatch, "run": label, "wall_s": wall, "pairs_per_s": FARM_JOBS / wall,
                 "audio_s_per_wall_s": audio_seconds / wall, "k1": launches[0], "k2": launches[1],
@@ -549,6 +682,20 @@ def farm_path(mt, torch, device, config, recorder, tmp):
                 ]
     numbers["runs"] = runs
     numbers["warm_timelines"] = timelines
+
+    # one warm run of each dispatch under the profiler: each job's int16
+    # tracks to the card once; back, each job's float32 PCM_16 variant, job
+    # 1's raw variant and job 0's two preview pieces
+    t_n = [int(seconds * SR) for seconds in t_seconds]
+    r_n = [int(seconds * SR) for seconds in r_seconds]
+    numbers["transfers"] = {}
+    for dispatch in ("pipelined", "vmapped"):
+        numbers["transfers"][dispatch] = traced_run(
+            torch, f"{dispatch} process_batch",
+            lambda: mt.process_batch(jobs(f"{dispatch}_traced_"), config, dispatch=dispatch, device=device),
+            FARM_JOBS, 2 * 2 * (sum(t_n) + sum(r_n)),
+            2 * 4 * (sum(t_n) + t_n[1]) + 2 * config.preview_size * 2 * 4,
+        )
 
     # every job's PCM_16 master against process() on the card
     worst = 0
@@ -1261,7 +1408,7 @@ def distributed_path(torch, here, farm_dir, farm):
     return numbers, [(r["k1"], r["k2"], r["k3"]) for r in warm]
 
 
-def codecs_path(mt, run_process, phase4):
+def codecs_path(mt, torch, run_process, phase4):
     """Phase 11: the native codec and the lossy libraries (see the module's
     docstring).  ``phase4``: the paths of phase 4's target, reference and
     ``process()`` output.  Returns the phase's numbers; fails on any
@@ -1323,14 +1470,23 @@ def codecs_path(mt, run_process, phase4):
         del target
         runs, events = [], []
         run_process("wav", runs, events, target_path, reference_path, [mt.pcm24(at("o.wav"))])
-        run_process("flac", runs, events, at("t.flac"), reference_path, [mt.Result(at("o.flac"), "PCM_24")])
+        timeline = run_process("flac", runs, events, at("t.flac"), reference_path,
+                               [mt.Result(at("o.flac"), "PCM_24")])
+        # the FLAC target decodes to float64, the WAV reference stays int16
+        transfers = traced_run(
+            torch, "FLAC process()",
+            lambda: mt.process(at("t.flac"), reference_path, [mt.Result(at("o.flac"), "PCM_24")],
+                               device="cuda"),
+            1, FULL_N * 2 * 8 + FULL_N * 2 * 2, FULL_N * 2 * 4,
+        )
         from_wav, _ = codecs.read(at("o.wav"))
         from_flac, flac_rate = codecs.read(at("o.flac"))
         require(flac_rate == SR and from_flac.shape == from_wav.shape == (FULL_N, 2),
                 f"the FLAC run wrote {from_flac.shape} at {flac_rate} Hz")
         steps = float(np.max(np.abs(from_flac - from_wav))) * 2.0**23
         require(steps <= 1.0, f"the FLAC run is {steps} PCM_24 steps off the WAV run")
-        numbers["process_flac"] = {"runs": runs, "max_pcm24_steps_vs_wav": steps}
+        numbers["process_flac"] = {"runs": runs, "max_pcm24_steps_vs_wav": steps,
+                                   "warm_timeline": timeline, "transfers": transfers}
 
         # the lossy libraries: reported, round-tripped where they load
         piece = result[: 10 * SR]
@@ -1375,6 +1531,7 @@ def main() -> None:
     require(not leaked, f"the port imported {leaked}")
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    watch_equality(torch)
 
     # --- 1. the card ---
     smi = subprocess.run(
@@ -1420,6 +1577,7 @@ def main() -> None:
         envelope.LAUNCHES = 0
         scan.LAUNCHES = 0
         sos.LAUNCHES = 0
+        EQUALITY_INPUTS.clear()
         torch.cuda.synchronize()
         start = time.perf_counter()
         try:
@@ -1429,9 +1587,11 @@ def main() -> None:
             mt.log()
         wall = time.perf_counter() - start
         launches = (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
-        runs.append({"run": label, "wall_s": wall, "k1": launches[0], "k2": launches[1], "k3": launches[2]})
+        runs.append({"run": label, "wall_s": wall, "k1": launches[0], "k2": launches[1], "k3": launches[2],
+                     "equality_inputs": list(EQUALITY_INPUTS)})
         require(launches == tuple(expected),
                 f"{label} process() launched K1, K2 and K3 {launches} times, not {tuple(expected)}")
+        require_equality_on_card(f"{label} process()", 1)
         # where the wall time went: each event's offset from the start
         return [{"t_s": round(t - start, 6), "event": message[:70]} for t, message in events]
 
@@ -1647,6 +1807,12 @@ def main() -> None:
         timeline = run_process(
             label, runs, events, target_path, reference_path, [mt.pcm16(out_path)]
         )
+    # one more warm process(): what crossed each way
+    transfers = traced_run(
+        torch, "process()",
+        lambda: mt.process(target_path, reference_path, [mt.pcm16(out_path)], device="cuda"),
+        1, 2 * FULL_N * 2 * 2, FULL_N * 2 * 4,
+    )
     # the device's share of master(): one profiled call on the staged int16 pair
     target_pcm, _ = mt.load(target_path, "target", raw_int=True)
     reference_pcm, _ = mt.load(reference_path, "reference", raw_int=True)
@@ -1681,6 +1847,7 @@ def main() -> None:
         "output_peak": peak, "threshold": config.threshold,
     }), flush=True)
     print(json.dumps({"warm_timeline": timeline}), flush=True)
+    print(json.dumps({"transfers": transfers}), flush=True)
     print(json.dumps({
         "master_profiled": {
             "wall_ms": master_ms, "device_ms": device_ms, "device_busy_share": device_ms / master_ms,
@@ -1740,7 +1907,7 @@ def main() -> None:
         numbers["launches_distributed"] = [launches[index] for launches in per_process]
 
     # --- 11. the codecs: FLAC, the native WAV writer, the lossy libraries ---
-    codecs = codecs_path(mt, run_process, (target_path, reference_path, out_path))
+    codecs = codecs_path(mt, torch, run_process, (target_path, reference_path, out_path))
     print(json.dumps({"codecs_path": codecs}), flush=True)
     workdir.cleanup()
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matchering_tpu")]

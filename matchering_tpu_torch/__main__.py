@@ -96,7 +96,7 @@ def main(argv=None, device=None) -> int:
     preview_result = mt.pcm16(args.preview_result) if args.preview_result else None
     if args.time_sharded:
         devices = device if device is None or isinstance(device, (list, tuple)) else [device]
-        _time_sharded(args, result, subtype, preview_target, preview_result, devices)
+        _time_sharded(args, result, preview_target, preview_result, devices)
         return 0
     mt.process(
         target=args.target,
@@ -110,14 +110,13 @@ def main(argv=None, device=None) -> int:
     return 0
 
 
-def _time_sharded(args, result, subtype, preview_target, preview_result, devices) -> None:
+def _time_sharded(args, result, preview_target, preview_result, devices) -> None:
     """``process()``'s host shell (loading, checks, the equality check,
     saving, previews) around ``master_sharded`` over a ``time`` mesh of
-    ``devices`` (``matchering_tpu/__main__.py:90-137``)."""
-    import numpy as np
-
+    ``devices`` (``matchering_tpu/__main__.py:90-137``): both tracks staged
+    on the mesh's first device, as ``process()`` stages them."""
     import matchering_tpu_torch as mt
-    from .core import _assert_graph_ready, _ingest
+    from .core import _VARIANT_FIELDS, _assert_graph_ready, _export, _ingest, _variant_key
     from .parallel.mesh import single_axis_mesh
     from .parallel.timeshard import master_sharded
     from .utils import get_temp_folder
@@ -132,22 +131,18 @@ def _time_sharded(args, result, subtype, preview_target, preview_result, devices
         mt.check_equality(target_track[0], reference_track[0])
     _assert_graph_ready((target_track, reference_track), config)
 
+    key = _variant_key(result)
     out = master_sharded(
         target_track[0],
         reference_track[0],
         config,
         mesh=mesh,
-        need_default=not args.no_limiter,
-        need_no_limiter=args.no_limiter and args.dont_normalize,
-        need_no_limiter_normalized=args.no_limiter and not args.dont_normalize,
+        need_default=key == "limited",
+        need_no_limiter=key == "raw",
+        need_no_limiter_normalized=key == "normalized",
     )
-    if not args.no_limiter:
-        rendered = out.result
-    elif args.dont_normalize:
-        rendered = out.result_no_limiter
-    else:
-        rendered = out.result_no_limiter_normalized
-    mt.save(args.result, rendered.cpu().numpy().astype(np.float64), config.internal_sample_rate, subtype)
+    rendered = getattr(out, _VARIANT_FIELDS[key])
+    _export([result], {key: rendered}, config)
     if preview_target or preview_result:
         mt.create_preview(target_track[0], rendered, config, preview_target, preview_result)
 

@@ -6,17 +6,18 @@ window are rejected, mono becomes stereo, more than two channels is an
 error, a track at another rate than ``config.internal_sample_rate`` is
 resampled to it on the device (``ops.resample``; the reference delegates to
 ``resampy``, ``checker.py:42``), and the TARGET gets clipping/limiting
-advisories from a peak count on the device.  A resampled track comes back
-as a float64 tensor on the device; any other track as the host array it
-was given.
+advisories from a peak count on the device.  Each track crosses to the
+device once, as it was decoded (integer PCM as its raw codes, converted
+where it is read), and comes back as a tensor there: the resampled track
+as float64, any other in the dtype it was given.  The equality check runs
+on those tensors.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple, Union
+from typing import Tuple
 
-import numpy as np
 import torch
 
 from .config import Config
@@ -61,7 +62,7 @@ _POLICIES = {
 
 
 def _bound_length(
-    array: np.ndarray, sample_rate: int, config: Config, policy: _RolePolicy
+    array, sample_rate: int, config: Config, policy: _RolePolicy
 ) -> None:
     samples = array.shape[0]
     debug(
@@ -74,26 +75,29 @@ def _bound_length(
         raise ModuleError(policy.too_short)
 
 
-def _to_stereo(array: np.ndarray, policy: _RolePolicy) -> np.ndarray:
+def _to_stereo(array, policy: _RolePolicy, device) -> torch.Tensor:
+    """Stage the track on ``device`` as stereo.  Mono crosses as one
+    channel and is doubled there: half the bytes of doubling it first."""
     channels = array.shape[1]
-    if channels == 2:
-        return array
+    if channels not in (1, 2):
+        raise ModuleError(policy.too_many_channels)
+    staged = to_device(array, device)
     if channels == 1:
         info(policy.mono)
-        return np.repeat(array, repeats=2, axis=1)
-    raise ModuleError(policy.too_many_channels)
+        return staged.repeat(1, 2)
+    return staged
 
 
 def _to_internal_rate(
-    array: np.ndarray, sample_rate: int, config: Config, policy: _RolePolicy, device
-):
-    """Resample to the internal rate on ``device``; integer PCM crosses to
-    it raw and converts there."""
+    array: torch.Tensor, sample_rate: int, config: Config, policy: _RolePolicy
+) -> Tuple[torch.Tensor, int]:
+    """Resample the staged track to the internal rate on its device;
+    integer PCM converts there."""
     internal = config.internal_sample_rate
     if sample_rate == internal:
         return array, sample_rate
     debug(f"Rate conversion for {policy.name}: {sample_rate} -> {internal} Hz")
-    converted = resample.resample(to_device(array, device), sample_rate, internal)
+    converted = resample.resample(array, sample_rate, internal)
     policy.resample_event()
     return converted, internal
 
@@ -102,10 +106,10 @@ def _as_float64(array, device) -> torch.Tensor:
     return basics.to_working_float(to_device(array, device), torch.float64)
 
 
-def _peak_heuristics(array, config: Config, device) -> None:
+def _peak_heuristics(array: torch.Tensor, config: Config) -> None:
     """Advisory-only analysis of the peak population: many samples pinned at
     one maximum suggest clipping (at full scale) or an upstream limiter."""
-    peak, pinned = basics.count_max_peaks(to_device(array, device))
+    peak, pinned = basics.count_max_peaks(array)
     peak, pinned = float(peak), int(pinned)
     if pinned <= config.clipping_samples_threshold:
         return
@@ -117,27 +121,30 @@ def _peak_heuristics(array, config: Config, device) -> None:
 
 
 def check(
-    array: np.ndarray, sample_rate: int, config: Config, name: str, device=None
-) -> Tuple[Union[np.ndarray, torch.Tensor], int]:
+    array, sample_rate: int, config: Config, name: str, device=None
+) -> Tuple[torch.Tensor, int]:
     """Condition one input track for the mastering graph: bound its length,
-    force stereo, convert to the internal rate, and (for the TARGET) emit
-    peak-population advisories.  Resampling and the peak count run on
-    ``device`` (``cuda`` unless named)."""
+    stage it on ``device`` (``cuda`` unless named) as stereo, convert it to
+    the internal rate there, and (for the TARGET) emit peak-population
+    advisories from a count there.  Returns the staged tensor and its
+    rate."""
     policy = _POLICIES[name.upper()]
     device = resolve_device(device)
     _bound_length(array, sample_rate, config, policy)
-    array = _to_stereo(array, policy)
-    array, sample_rate = _to_internal_rate(array, sample_rate, config, policy, device)
+    staged = _to_stereo(array, policy, device)
+    staged, sample_rate = _to_internal_rate(staged, sample_rate, config, policy)
     if policy.heuristics:
-        _peak_heuristics(array, config, device)
-    return array, sample_rate
+        _peak_heuristics(staged, config)
+    return staged, sample_rate
 
 
 def check_equality(target, reference) -> None:
     """Matching a track against itself is meaningless; reject it
-    (reference ``checker.py:140-142``).  Staged integer PCM compares in the
-    float domain, with ``np.allclose``'s tolerances, on the device of a
-    track that is a tensor (resampled there), else on the host."""
+    (reference ``checker.py:140-142``).  The tracks compare in float64 with
+    ``np.allclose``'s tolerances, staged integer PCM in the float domain, so
+    the same track as PCM_16 WAV and as FLAC is still equal.  They compare
+    on the target's device where it is a tensor, else on the reference's,
+    else on the host."""
     if tuple(target.shape) != tuple(reference.shape):
         return
     tensors = [a for a in (target, reference) if isinstance(a, torch.Tensor)]

@@ -9,9 +9,9 @@ are the JAX package's.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
-import numpy as np
+import torch
 
 from .checker import check, check_equality
 from .config import Config
@@ -20,14 +20,16 @@ from .log import Code, ModuleError, debug, debug_line, info
 from .preview import create_preview
 from .results import Result
 from .stages import main as stages_main
-from .utils import get_temp_folder, resolve_device
+from .utils import get_temp_folder, resolve_device, to_host
 
 
 def _ingest(path: str, role: str, config: Config, temp_folder: str, device):
-    """Decode one file and condition it.  Integer-PCM WAV keeps its raw
-    int16/int32 payload (``raw_int=True``): that is what crosses to the
-    device, which converts it (``ops.basics.to_working_float``), and
-    resamples it there if its rate is not the internal one."""
+    """Decode one file and condition it: the track crosses to ``device``
+    once (``check``), and the equality check, the graph and the previews
+    read it there.  Integer-PCM WAV keeps its raw int16/int32 payload
+    (``raw_int=True``): that is what crosses, and the device converts it
+    (``ops.basics.to_working_float``), resampling it there if its rate is
+    not the internal one."""
     audio, rate = load(path, role, temp_folder, raw_int=True)
     return check(audio, rate, config, role, device=device)
 
@@ -46,10 +48,33 @@ def _assert_graph_ready(tracks, config: Config) -> None:
             raise ModuleError(Code.ERROR_VALIDATION)
 
 
+# each variant's field of ``stages.MasterOutput``
+_VARIANT_FIELDS = {
+    "limited": "result",
+    "raw": "result_no_limiter",
+    "normalized": "result_no_limiter_normalized",
+}
+
+
 def _variant_key(result: Result) -> str:
     if result.use_limiter:
         return "limited"
     return "normalized" if result.normalize else "raw"
+
+
+def _export(results: List[Result], variants: Dict[str, torch.Tensor], config: Config) -> None:
+    """Write each result from its variant.  Each variant crosses to the
+    host once, at its working dtype (``to_host``); the writers widen the
+    samples to float64 where they quantise, so the bytes are those of a
+    float64 export."""
+    host = {}
+    for result in results:
+        key = _variant_key(result)
+        if key not in host:
+            if variants.get(key) is None:  # unreachable: the graph renders every key asked for
+                raise ModuleError(Code.ERROR_VALIDATION)
+            host[key] = to_host(variants[key])
+        save(result.file, host[key], config.internal_sample_rate, result.subtype)
 
 
 def process(
@@ -99,9 +124,7 @@ def process(
 
     debug_line()
     info(Code.INFO_EXPORTING)
-    for result in results:
-        audio = variants[_variant_key(result)].cpu().numpy().astype(np.float64)
-        save(result.file, audio, config.internal_sample_rate, result.subtype)
+    _export(results, variants, config)
 
     if preview_target or preview_result:
         # any rendered variant serves as the preview source, preferring the

@@ -16,21 +16,20 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
-import numpy as np
 import torch
 
 from .config import Config
-from .core import _assert_graph_ready, _ingest, _variant_key
+from .core import _VARIANT_FIELDS, _assert_graph_ready, _export, _ingest, _variant_key
 from .checker import check_equality
-from .io import save
-from .log import Code, ModuleError, debug, debug_line, info
+from .log import Code, debug, debug_line, info
 from .ops import basics
 from .parallel.batch import bucket_pad, master_batch, master_pairs
 from .parallel.mesh import require_pairs_axis
 from .parallel.timeshard import master_farm
 from .preview import create_preview
 from .results import Result
-from .utils import get_temp_folder, resolve_device, to_device
+from .utils import get_temp_folder, resolve_device
+
 
 @dataclass(frozen=True)
 class PairJob:
@@ -44,15 +43,16 @@ class PairJob:
     preview_result: Optional[Result] = None
 
 
-def _one_dtype(tracks, config: Config, device):
-    """A role's tracks as they are if they share a dtype; otherwise each
-    converted on the device to the working float (``basics.to_working_float``),
-    so raw integer codes are never promoted unscaled.  The JAX package
-    converts on the host to float64 instead; both round each code once to
-    the working dtype, so the values are the same."""
-    if len({str(t.dtype).replace("torch.", "") for t in tracks}) == 1:
+def _one_dtype(tracks, config: Config):
+    """A role's staged tracks as they are if they share a dtype; otherwise
+    each converted where it lies to the working float
+    (``basics.to_working_float``), so raw integer codes are never promoted
+    unscaled.  The JAX package converts on the host to float64 instead;
+    both round each code once to the working dtype, so the values are the
+    same."""
+    if len({t.dtype for t in tracks}) == 1:
         return tracks
-    return [basics.to_working_float(to_device(t, device), config.torch_dtype) for t in tracks]
+    return [basics.to_working_float(t, config.torch_dtype) for t in tracks]
 
 
 def process_batch(
@@ -121,8 +121,8 @@ def process_batch(
         _assert_graph_ready((target_track, reference_track), config)
         targets.append(target_track[0])
         references.append(reference_track[0])
-    targets = _one_dtype(targets, config, device)
-    references = _one_dtype(references, config, device)
+    targets = _one_dtype(targets, config)
+    references = _one_dtype(references, config)
 
     # the union of variants over all jobs: the graph renders each variant
     # once for the batch, and each job takes what it asked for
@@ -166,30 +166,26 @@ def process_batch(
                 target_lengths=t_lens, reference_lengths=r_lens, device=device,
             )
         outs = [out.row(i) for i in range(len(jobs))]
-    keys = {"limited": "result", "raw": "result_no_limiter", "normalized": "result_no_limiter_normalized"}
 
     debug_line()
     info(Code.INFO_EXPORTING)
     for job, out, length, target in zip(jobs, outs, t_lens, targets):
-        for result in job.results:
-            rendered = getattr(out, keys[_variant_key(result)])
-            if rendered is None:  # unreachable: wanted covers every key
-                raise ModuleError(Code.ERROR_VALIDATION)
-            audio = rendered[:length].cpu().numpy().astype(np.float64)
-            save(result.file, audio, config.internal_sample_rate, result.subtype)
+        # each job's variants cut back to its true length
+        variants = {
+            k: getattr(out, attr)[:length]
+            for k, attr in _VARIANT_FIELDS.items()
+            if getattr(out, attr) is not None
+        }
+        _export(job.results, variants, config)
         if job.preview_target or job.preview_result:
             # the preview source is the first variant THIS job asked for
             # (reference ``core.py:111-118``; the batch's union may hold
             # variants the job never asked for); a preview-only job takes
             # any rendered variant in the same order
             job_wanted = {_variant_key(r) for r in job.results}
-            order = [k for k in keys if k in job_wanted] or list(keys)
-            source = next(
-                getattr(out, keys[k]) for k in order if getattr(out, keys[k]) is not None
-            )
-            create_preview(
-                target, source[:length], config, job.preview_target, job.preview_result
-            )
+            order = [k for k in _VARIANT_FIELDS if k in job_wanted] or list(_VARIANT_FIELDS)
+            source = next(variants[k] for k in order if k in variants)
+            create_preview(target, source, config, job.preview_target, job.preview_result)
 
     debug_line()
     info(Code.INFO_COMPLETED)

@@ -129,10 +129,13 @@ def read(path: str, raw_int: bool = False) -> Tuple[np.ndarray, int]:
 
 
 def write(path: str, array: np.ndarray, sample_rate: int, subtype: str) -> None:
+    """Write float32 or float64 (n, ch) samples; each backend widens
+    float32 to float64 where it quantises (exact), so both write the same
+    bytes."""
     ext = os.path.splitext(path)[1][1:].upper()
     if ext == "WAV":
         if native.available() and subtype in ("PCM_16", "PCM_24", "PCM_32", "FLOAT"):
-            native.write_wav(path, np.ascontiguousarray(array, dtype=np.float64), sample_rate, subtype)
+            native.write_wav(path, array, sample_rate, subtype)
             return
         # DOUBLE/ALAW/ULAW subtypes go through the numpy codec
         wav.write(path, array, sample_rate, subtype)
@@ -141,7 +144,7 @@ def write(path: str, array: np.ndarray, sample_rate: int, subtype: str) -> None:
     elif ext == "FLAC":
         if not native.available():
             raise RuntimeError("FLAC output needs the native codec (io/native)")
-        native.write_flac(path, np.ascontiguousarray(array, dtype=np.float64), sample_rate, subtype)
+        native.write_flac(path, array, sample_rate, subtype)
     elif ext == "W64":
         w64.write(path, array, sample_rate, subtype)
     elif ext == "CAF":

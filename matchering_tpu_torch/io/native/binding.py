@@ -3,6 +3,9 @@
 Counterpart of ``matchering_tpu/io/native/binding.py``.  The native backend
 (``codec.cpp``, ``flac.cpp``) converts PCM <-> float64 in bulk and reads
 and writes the files for the host shell; FLAC has no other codec.  The
+writers also take float32 samples (``mtpu_*_write_f32``), which they widen
+to float64 before they quantise: the bytes are those of the float64
+entry with the same samples widened.  The
 library is the port's own, built with g++ from the sources beside this
 file into ``matchering_tpu_torch/_build/`` (``build.py``) at first use.
 Set ``MATCHERING_TPU_TORCH_NO_AUTOBUILD=1`` to forbid that build: without
@@ -72,15 +75,16 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_double),
         ctypes.c_longlong,
     ]
-    lib.mtpu_wav_write.restype = ctypes.c_int
-    lib.mtpu_wav_write.argtypes = [
-        ctypes.c_char_p,
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.c_longlong,  # frames
-        ctypes.c_int,  # channels
-        ctypes.c_int,  # sample rate
-        ctypes.c_int,  # subtype id
-    ]
+    for entry, sample in (("mtpu_wav_write", ctypes.c_double), ("mtpu_wav_write_f32", ctypes.c_float)):
+        getattr(lib, entry).restype = ctypes.c_int
+        getattr(lib, entry).argtypes = [
+            ctypes.c_char_p,
+            ctypes.POINTER(sample),
+            ctypes.c_longlong,  # frames
+            ctypes.c_int,  # channels
+            ctypes.c_int,  # sample rate
+            ctypes.c_int,  # subtype id
+        ]
     lib.mtpu_flac_probe.restype = ctypes.c_int
     lib.mtpu_flac_probe.argtypes = [
         ctypes.c_char_p,
@@ -95,15 +99,16 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_double),
         ctypes.c_longlong,
     ]
-    lib.mtpu_flac_write.restype = ctypes.c_int
-    lib.mtpu_flac_write.argtypes = [
-        ctypes.c_char_p,
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.c_longlong,  # frames
-        ctypes.c_int,  # channels
-        ctypes.c_int,  # sample rate
-        ctypes.c_int,  # bits per sample
-    ]
+    for entry, sample in (("mtpu_flac_write", ctypes.c_double), ("mtpu_flac_write_f32", ctypes.c_float)):
+        getattr(lib, entry).restype = ctypes.c_int
+        getattr(lib, entry).argtypes = [
+            ctypes.c_char_p,
+            ctypes.POINTER(sample),
+            ctypes.c_longlong,  # frames
+            ctypes.c_int,  # channels
+            ctypes.c_int,  # sample rate
+            ctypes.c_int,  # bits per sample
+        ]
     _lib = lib
     return _lib
 
@@ -117,6 +122,20 @@ def _loaded() -> ctypes.CDLL:
     if lib is None:
         raise RuntimeError("the native codec is not available (see the debug log)")
     return lib
+
+
+def _writer(lib: ctypes.CDLL, entry: str, array):
+    """A writer's entry for ``array``'s dtype (float32 samples go to the
+    ``_f32`` entry as they are, anything else as float64), the (n, ch)
+    C-contiguous samples, and their pointer."""
+    array = np.asarray(array)
+    f32 = array.dtype == np.float32
+    array = np.ascontiguousarray(array, dtype=np.float32 if f32 else np.float64)
+    if array.ndim == 1:
+        array = array[:, None]
+    sample = ctypes.c_float if f32 else ctypes.c_double
+    fn = getattr(lib, entry + "_f32" if f32 else entry)
+    return fn, array, array.ctypes.data_as(ctypes.POINTER(sample))
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -141,13 +160,11 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
 
 
 def write_wav(path: str, array: np.ndarray, sample_rate: int, subtype: str) -> None:
-    lib = _loaded()
-    array = np.ascontiguousarray(array, dtype=np.float64)
-    if array.ndim == 1:
-        array = array[:, None]
-    rc = lib.mtpu_wav_write(
+    """Encode float32 or float64 (n, ch) audio as WAV (PCM_16/24/32, FLOAT)."""
+    write, array, samples = _writer(_loaded(), "mtpu_wav_write", array)
+    rc = write(
         path.encode(),
-        array.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        samples,
         array.shape[0],
         array.shape[1],
         sample_rate,
@@ -211,15 +228,12 @@ def read_flac(path: str) -> Tuple[np.ndarray, int]:
 
 
 def write_flac(path: str, array: np.ndarray, sample_rate: int, subtype: str) -> None:
-    """Encode float64 (n, ch) audio as FLAC (PCM_16 or PCM_24)."""
-    lib = _loaded()
+    """Encode float32 or float64 (n, ch) audio as FLAC (PCM_16 or PCM_24)."""
     bps = {"PCM_16": 16, "PCM_24": 24}[subtype]
-    array = np.ascontiguousarray(array, dtype=np.float64)
-    if array.ndim == 1:
-        array = array[:, None]
-    rc = lib.mtpu_flac_write(
+    write, array, samples = _writer(_loaded(), "mtpu_flac_write", array)
+    rc = write(
         path.encode(),
-        array.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        samples,
         array.shape[0],
         array.shape[1],
         sample_rate,

@@ -1,5 +1,7 @@
 // Native WAV codec for matchering_tpu_torch (the JAX package's
-// matchering_tpu/io/native/codec.cpp, copied unchanged below this header).
+// matchering_tpu/io/native/codec.cpp, copied below this header; the writer
+// is a template over the sample type, with a float32 entry point,
+// mtpu_wav_write_f32, beside the float64 one).
 //
 // Host-side I/O acceleration: bulk PCM <-> float64 conversion and file
 // read/write in C++, exposed through a tiny C ABI consumed via ctypes
@@ -104,6 +106,86 @@ double ClipRound(double x, double lo, double hi) {
   return r < lo ? lo : (r > hi ? hi : r);
 }
 
+// subtype: 0=PCM_16 1=PCM_24 2=PCM_32 3=FLOAT.  A float32 sample is widened
+// to double (exact) before it is quantised, so both sample types write the
+// same bytes for the same values.
+template <typename Sample>
+int WriteWav(const char* path, const Sample* data, long long frames,
+             int channels, int rate, int subtype) {
+  int bits;
+  uint16_t tag = kFormatPcm;
+  switch (subtype) {
+    case 0: bits = 16; break;
+    case 1: bits = 24; break;
+    case 2: bits = 32; break;
+    case 3: bits = 32; tag = kFormatFloat; break;
+    default: return 4;
+  }
+  long long count = frames * channels;
+  long long payload_bytes = count * (bits / 8);
+
+  std::vector<uint8_t> out;
+  out.reserve(static_cast<size_t>(payload_bytes) + 64);
+  out.insert(out.end(), {'R', 'I', 'F', 'F'});
+  WriteU32(&out, 0);  // patched below
+  out.insert(out.end(), {'W', 'A', 'V', 'E'});
+  out.insert(out.end(), {'f', 'm', 't', ' '});
+  WriteU32(&out, 16);
+  WriteU16(&out, tag);
+  WriteU16(&out, static_cast<uint16_t>(channels));
+  WriteU32(&out, static_cast<uint32_t>(rate));
+  WriteU32(&out, static_cast<uint32_t>(rate * channels * (bits / 8)));
+  WriteU16(&out, static_cast<uint16_t>(channels * (bits / 8)));
+  WriteU16(&out, static_cast<uint16_t>(bits));
+  if (tag == kFormatFloat) {
+    out.insert(out.end(), {'f', 'a', 'c', 't'});
+    WriteU32(&out, 4);
+    WriteU32(&out, static_cast<uint32_t>(frames));
+  }
+  out.insert(out.end(), {'d', 'a', 't', 'a'});
+  WriteU32(&out, static_cast<uint32_t>(payload_bytes));
+
+  size_t base = out.size();
+  out.resize(base + static_cast<size_t>(payload_bytes));
+  uint8_t* p = out.data() + base;
+  if (subtype == 0) {
+    for (long long i = 0; i < count; ++i) {
+      int16_t v = static_cast<int16_t>(ClipRound(static_cast<double>(data[i]) * 32768.0, -32768.0, 32767.0));
+      std::memcpy(p + 2 * i, &v, 2);
+    }
+  } else if (subtype == 1) {
+    for (long long i = 0; i < count; ++i) {
+      int32_t v = static_cast<int32_t>(ClipRound(static_cast<double>(data[i]) * 8388608.0, -8388608.0, 8388607.0));
+      p[3 * i] = v & 0xFF;
+      p[3 * i + 1] = (v >> 8) & 0xFF;
+      p[3 * i + 2] = (v >> 16) & 0xFF;
+    }
+  } else if (subtype == 2) {
+    for (long long i = 0; i < count; ++i) {
+      int32_t v = static_cast<int32_t>(ClipRound(static_cast<double>(data[i]) * 2147483648.0, -2147483648.0, 2147483647.0));
+      std::memcpy(p + 4 * i, &v, 4);
+    }
+  } else {
+    for (long long i = 0; i < count; ++i) {
+      float v = static_cast<float>(data[i]);
+      std::memcpy(p + 4 * i, &v, 4);
+    }
+  }
+  if (payload_bytes & 1) out.push_back(0);
+
+  uint32_t riff_size = static_cast<uint32_t>(out.size() - 8);
+  out[4] = riff_size & 0xFF;
+  out[5] = (riff_size >> 8) & 0xFF;
+  out[6] = (riff_size >> 16) & 0xFF;
+  out[7] = (riff_size >> 24) & 0xFF;
+
+  FILE* f = std::fopen(path, "wb");
+  if (!f) return 10;
+  size_t wrote = std::fwrite(out.data(), 1, out.size(), f);
+  std::fclose(f);
+  return wrote == out.size() ? 0 : 11;
+}
+
 }  // namespace
 
 extern "C" {
@@ -167,78 +249,12 @@ int mtpu_wav_read(const char* path, double* out, long long count) {
 // subtype: 0=PCM_16 1=PCM_24 2=PCM_32 3=FLOAT
 int mtpu_wav_write(const char* path, const double* data, long long frames,
                    int channels, int rate, int subtype) {
-  int bits;
-  uint16_t tag = kFormatPcm;
-  switch (subtype) {
-    case 0: bits = 16; break;
-    case 1: bits = 24; break;
-    case 2: bits = 32; break;
-    case 3: bits = 32; tag = kFormatFloat; break;
-    default: return 4;
-  }
-  long long count = frames * channels;
-  long long payload_bytes = count * (bits / 8);
+  return WriteWav(path, data, frames, channels, rate, subtype);
+}
 
-  std::vector<uint8_t> out;
-  out.reserve(static_cast<size_t>(payload_bytes) + 64);
-  out.insert(out.end(), {'R', 'I', 'F', 'F'});
-  WriteU32(&out, 0);  // patched below
-  out.insert(out.end(), {'W', 'A', 'V', 'E'});
-  out.insert(out.end(), {'f', 'm', 't', ' '});
-  WriteU32(&out, 16);
-  WriteU16(&out, tag);
-  WriteU16(&out, static_cast<uint16_t>(channels));
-  WriteU32(&out, static_cast<uint32_t>(rate));
-  WriteU32(&out, static_cast<uint32_t>(rate * channels * (bits / 8)));
-  WriteU16(&out, static_cast<uint16_t>(channels * (bits / 8)));
-  WriteU16(&out, static_cast<uint16_t>(bits));
-  if (tag == kFormatFloat) {
-    out.insert(out.end(), {'f', 'a', 'c', 't'});
-    WriteU32(&out, 4);
-    WriteU32(&out, static_cast<uint32_t>(frames));
-  }
-  out.insert(out.end(), {'d', 'a', 't', 'a'});
-  WriteU32(&out, static_cast<uint32_t>(payload_bytes));
-
-  size_t base = out.size();
-  out.resize(base + static_cast<size_t>(payload_bytes));
-  uint8_t* p = out.data() + base;
-  if (subtype == 0) {
-    for (long long i = 0; i < count; ++i) {
-      int16_t v = static_cast<int16_t>(ClipRound(data[i] * 32768.0, -32768.0, 32767.0));
-      std::memcpy(p + 2 * i, &v, 2);
-    }
-  } else if (subtype == 1) {
-    for (long long i = 0; i < count; ++i) {
-      int32_t v = static_cast<int32_t>(ClipRound(data[i] * 8388608.0, -8388608.0, 8388607.0));
-      p[3 * i] = v & 0xFF;
-      p[3 * i + 1] = (v >> 8) & 0xFF;
-      p[3 * i + 2] = (v >> 16) & 0xFF;
-    }
-  } else if (subtype == 2) {
-    for (long long i = 0; i < count; ++i) {
-      int32_t v = static_cast<int32_t>(ClipRound(data[i] * 2147483648.0, -2147483648.0, 2147483647.0));
-      std::memcpy(p + 4 * i, &v, 4);
-    }
-  } else {
-    for (long long i = 0; i < count; ++i) {
-      float v = static_cast<float>(data[i]);
-      std::memcpy(p + 4 * i, &v, 4);
-    }
-  }
-  if (payload_bytes & 1) out.push_back(0);
-
-  uint32_t riff_size = static_cast<uint32_t>(out.size() - 8);
-  out[4] = riff_size & 0xFF;
-  out[5] = (riff_size >> 8) & 0xFF;
-  out[6] = (riff_size >> 16) & 0xFF;
-  out[7] = (riff_size >> 24) & 0xFF;
-
-  FILE* f = std::fopen(path, "wb");
-  if (!f) return 10;
-  size_t wrote = std::fwrite(out.data(), 1, out.size(), f);
-  std::fclose(f);
-  return wrote == out.size() ? 0 : 11;
+int mtpu_wav_write_f32(const char* path, const float* data, long long frames,
+                       int channels, int rate, int subtype) {
+  return WriteWav(path, data, frames, channels, rate, subtype);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // FLAC codec (subset of RFC 9639) — native backend for matchering_tpu_torch
-// (the JAX package's matchering_tpu/io/native/flac.cpp, copied unchanged
-// below this header).
+// (the JAX package's matchering_tpu/io/native/flac.cpp, copied below this
+// header; the writer is a template over the sample type, with a float32
+// entry point, mtpu_flac_write_f32, beside the float64 one).
 //
 // The reference gets FLAC through libsndfile (matchering/loader.py:35,
 // saver.py:32); this standalone implementation provides:
@@ -12,7 +13,8 @@
 //            partition rice coding, independent channels, 16/24-bit PCM,
 //            4096-sample frames — valid, reasonably compact FLAC.
 //
-// Exposed C ABI: mtpu_flac_probe / mtpu_flac_read / mtpu_flac_write.
+// Exposed C ABI: mtpu_flac_probe / mtpu_flac_read / mtpu_flac_write /
+// mtpu_flac_write_f32.
 
 #include <cstdint>
 #include <cstdio>
@@ -503,6 +505,35 @@ std::vector<uint8_t> read_file(const char* path) {
   return buf;
 }
 
+// float64 or float32 interleaved [-1, 1) -> `bps`-bit codes (16 or 24).  A
+// float32 sample is widened to double (exact) before it is quantised, so
+// both sample types give the same codes for the same values.
+template <typename Sample>
+std::vector<int32_t> quantise(const Sample* samples, long long count, int bps) {
+  double scale = (double)(1ll << (bps - 1));
+  double lo = -scale, hi = scale - 1.0;
+  std::vector<int32_t> pcm((size_t)count);
+  for (long long i = 0; i < count; ++i) {
+    double v = (double)samples[i] * scale;
+    if (v > hi) v = hi;
+    if (v < lo) v = lo;
+    pcm[i] = (int32_t)llrint(v);
+  }
+  return pcm;
+}
+
+// Encodes the codes and writes the file. Returns 0 on success.
+int write_codes(const char* path, const std::vector<int32_t>& pcm, long long frames,
+                int channels, int sample_rate, int bps) {
+  std::vector<uint8_t> out = encode_stream(pcm.data(), frames, (uint32_t)channels,
+                                           (uint32_t)sample_rate, (uint32_t)bps);
+  FILE* f = fopen(path, "wb");
+  if (!f) return -2;
+  size_t w = fwrite(out.data(), 1, out.size(), f);
+  fclose(f);
+  return w == out.size() ? 0 : -3;
+}
+
 }  // namespace
 
 extern "C" {
@@ -543,22 +574,16 @@ long long mtpu_flac_read(const char* path, double* out, long long capacity) {
 int mtpu_flac_write(const char* path, const double* samples, long long frames,
                     int channels, int sample_rate, int bps) {
   if (bps != 16 && bps != 24) return -1;
-  double scale = (double)(1ll << (bps - 1));
-  double lo = -scale, hi = scale - 1.0;
-  std::vector<int32_t> pcm((size_t)frames * channels);
-  for (long long i = 0; i < frames * channels; ++i) {
-    double v = samples[i] * scale;
-    if (v > hi) v = hi;
-    if (v < lo) v = lo;
-    pcm[i] = (int32_t)llrint(v);
-  }
-  std::vector<uint8_t> out = encode_stream(pcm.data(), frames, (uint32_t)channels,
-                                           (uint32_t)sample_rate, (uint32_t)bps);
-  FILE* f = fopen(path, "wb");
-  if (!f) return -2;
-  size_t w = fwrite(out.data(), 1, out.size(), f);
-  fclose(f);
-  return w == out.size() ? 0 : -3;
+  return write_codes(path, quantise(samples, frames * channels, bps), frames, channels,
+                     sample_rate, bps);
+}
+
+// The same from float32 samples.
+int mtpu_flac_write_f32(const char* path, const float* samples, long long frames,
+                        int channels, int sample_rate, int bps) {
+  if (bps != 16 && bps != 24) return -1;
+  return write_codes(path, quantise(samples, frames * channels, bps), frames, channels,
+                     sample_rate, bps);
 }
 
 }  // extern "C"

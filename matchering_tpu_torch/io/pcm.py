@@ -4,7 +4,9 @@ Replaces the float conversion conventions the reference inherits from
 libsndfile via ``soundfile`` (reference ``matchering/loader.py:35``,
 ``matchering/saver.py:32``): integer PCM maps to float by dividing by
 ``2**(bits-1)``; float -> integer multiplies by ``2**(bits-1)`` and clips to
-the representable range.
+the representable range.  The integer and G.711 encoders widen float32
+input to float64 first (exact), so it quantises as the same samples in
+float64 do; FLOAT writes float32 as it is.
 """
 
 from __future__ import annotations
@@ -124,12 +126,14 @@ def decode_double(raw: bytes, big_endian: bool = False) -> np.ndarray:
 
 
 def encode_pcm16(x: np.ndarray, big_endian: bool = False) -> bytes:
+    x = np.asarray(x, dtype=np.float64)
     scaled = np.clip(np.rint(x * 32768.0), -32768, 32767).astype(np.int64)
     dt = ">i2" if big_endian else "<i2"
     return scaled.astype(dt).tobytes()
 
 
 def encode_pcm24(x: np.ndarray, big_endian: bool = False) -> bytes:
+    x = np.asarray(x, dtype=np.float64)
     scaled = np.clip(
         np.rint(x * float(1 << 23)), -(1 << 23), (1 << 23) - 1
     ).astype(np.int32)
@@ -144,6 +148,7 @@ def encode_pcm24(x: np.ndarray, big_endian: bool = False) -> bytes:
 
 
 def encode_pcm32(x: np.ndarray, big_endian: bool = False) -> bytes:
+    x = np.asarray(x, dtype=np.float64)
     scaled = np.clip(
         np.rint(x * float(1 << 31)), -(1 << 31), (1 << 31) - 1
     ).astype(np.int64)
@@ -172,11 +177,13 @@ def decode_alaw(raw: bytes, big_endian: bool = False) -> np.ndarray:
 
 
 def encode_ulaw(x: np.ndarray, big_endian: bool = False) -> bytes:
+    x = np.asarray(x, dtype=np.float64)
     scaled = np.clip(np.rint(x * 32768.0), -32768, 32767)
     return _ULAW_ORDER[np.searchsorted(_ULAW_MIDS, scaled)].tobytes()
 
 
 def encode_alaw(x: np.ndarray, big_endian: bool = False) -> bytes:
+    x = np.asarray(x, dtype=np.float64)
     scaled = np.clip(np.rint(x * 32768.0), -32768, 32767)
     return _ALAW_ORDER[np.searchsorted(_ALAW_MIDS, scaled)].tobytes()
 

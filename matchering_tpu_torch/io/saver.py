@@ -1,5 +1,8 @@
 """Audio export (reference ``matchering/saver.py:27-33``) through
-``codecs.write``, the container chosen by the file's extension."""
+``codecs.write``, the container chosen by the file's extension.  The
+samples are float32 or float64: every writer widens float32 to float64
+where it quantises, so a float32 result writes the bytes of the same
+result widened to float64."""
 
 from __future__ import annotations
 
