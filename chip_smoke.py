@@ -123,10 +123,22 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    one more run copies each way (the float64 FLAC target once); which
    lossy libraries load, and a round trip through each that does
    (missing ones are reported, not failed);
-12. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+12. the public op library on the card, at n = 7,938,000 float32 from the
+   seed: ``ops.iir.scan_first_order`` at the release pole (float32 and
+   float64), ``block_scan_summary``, ``filtfilt_first_order_truncated``
+   with a length of n - 12,345 (0 past it), ``scan_first_order_ds`` and
+   ``parallel.timeshard.carried_scan`` over four shards of the card,
+   each against K2's plain twin on the card (one float32 ulp at 1.0, two
+   for the filtfilt's two passes, 1e-12 relative in float64; the carried
+   scan against the whole track's scan), with K2's launches counted per
+   call (1, 1, 2, 1 and 2 per device) and no call of the twin allowed;
+   ``fft_convolve_same`` with a 4096-tap FIR (>= 95 dB) and
+   ``masked_average_spectrum_flat`` (1e-5 relative) against the CPU in
+   float64; each op timed over 10 calls (CUDA events);
+13. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
    kernel's batched numbers from phases 3, 7 and 8, its launches in one
-   sharded ``limit()`` (phase 9) and per process of phase 10's full-width
-   run, and each launch's registers, shared
+   sharded ``limit()`` (phase 9), per process of phase 10's full-width
+   run and, for K2, per public scan of phase 12, and each launch's registers, shared
    memory and resident blocks per SM from the kernels' info queries,
    beside the grid its wrapper recorded for the timed launches), then,
    last, the device line ``{"ok": true, "device": {...}}``.
@@ -174,6 +186,10 @@ LONG_RATE = 96000
 LONG_REFERENCE_SECONDS = 200
 LONG_SHARDS = 2
 SHARDED_LAUNCHES = (1, 8, 0)  # (K1, K2, K3) of one sharded limit() per card (parallel/timeshard.py)
+PUBLIC_SHARDS = 4  # phase 12: carried_scan over four shards of one card
+PUBLIC_CUT = 12_345  # phase 12: the truncated filtfilt ends this many samples before the track
+K2_PERF_MS = 0.0412  # K2's kernel time at n = 7,938,000 in PERF.md (float32, H100 80GB HBM3, 700 W)
+SPECTRUM_REL_TOL = 1e-5  # float32 |rFFT| averages against float64, relative to the largest bin
 # H100 peaks (NVIDIA data sheet, SXM part; the PCIe part is slower)
 HBM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
 F32_FLOPS = 67e12  # float32 outside the tensor cores
@@ -1511,6 +1527,149 @@ def codecs_path(mt, torch, run_process, phase4):
     return numbers
 
 
+def public_ops_path(torch, device, cuda_ms, release):
+    """Phase 12: the public op library on the card (see the module's
+    docstring).  ``release``: the limiter's release filter, whose pole the
+    scans run at.  Returns the phase's numbers, with the K2 launches of
+    each public scan; fails on any mismatch."""
+    from matchering_tpu_torch.kernels import scan
+    from matchering_tpu_torch.ops import convolve, iir, spectrum
+    from matchering_tpu_torch.parallel import timeshard
+    from matchering_tpu_torch.stages import piece_division
+
+    pole = release.pole
+    rng = np.random.RandomState(SEED + 12)
+    # a drive of (1 - pole) * [0, 1) keeps every scan's output below 1
+    drive = torch.from_numpy((rng.rand(FULL_N) * (1.0 - pole)).astype(np.float32)).to(device)
+    drive64 = drive.double()
+    twin_calls = []
+    real_twin = scan.first_order_filter_plain
+
+    def spy(*args, **kwargs):
+        twin_calls.append(1)
+        return real_twin(*args, **kwargs)
+
+    def counted(label, fn, expected):
+        """``fn()`` with K2's launches counted from 0; a call of the plain
+        twin inside it fails the phase."""
+        scan.LAUNCHES = 0
+        twin_calls.clear()
+        scan.first_order_filter_plain = spy
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            scan.first_order_filter_plain = real_twin
+        require(not twin_calls, f"{label} ran K2's plain twin on the card")
+        require(scan.LAUNCHES == expected, f"{label} launched K2 {scan.LAUNCHES} times, not {expected}")
+        return out
+
+    def twin(fn):
+        """``fn()`` with K2's plain twin in the kernel's place, on the card."""
+        kernel = scan.first_order_filter
+        scan.first_order_filter = real_twin
+        try:
+            return fn()
+        finally:
+            scan.first_order_filter = kernel
+
+    def abs_err(got, want):
+        require(bool(torch.isfinite(got).all()), "non-finite values")
+        return float((got.double() - want.double()).abs().max())
+
+    def rel_err(got, want):
+        return float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
+
+    ops = {}
+
+    def record(name, launches, err, tol, fn):
+        require(err <= tol, f"{name}: error {err} > {tol}")
+        ms = cuda_ms(fn, 10)
+        ops[name] = {"k2_launches": launches, "max_err": err, "tolerance": tol, "ms": ms}
+        print(f"public op {name}: {ms:.4f} ms a call (10 calls), {launches} K2 launches, "
+              f"error {err:.3e} (K2 in PERF.md: {K2_PERF_MS} ms of kernel)", flush=True)
+
+    # scan_first_order: one launch, in float32 and float64
+    got = counted("scan_first_order", lambda: iir.scan_first_order(drive, pole), 1)
+    want = real_twin(drive, 1.0, 0.0, -pole)
+    record("scan_first_order", 1, abs_err(got, want), SCAN_TOL, lambda: iir.scan_first_order(drive, pole))
+    got64 = counted("scan_first_order (float64)", lambda: iir.scan_first_order(drive64, pole), 1)
+    want64 = real_twin(drive64, 1.0, 0.0, -pole)
+    record("scan_first_order_f64", 1, rel_err(got64, want64), SCAN_REL_TOL_F64,
+           lambda: iir.scan_first_order(drive64, pole))
+    del got64
+
+    # block_scan_summary: the same scan, and its carry map
+    local, (a_total, last) = counted("block_scan_summary", lambda: iir.block_scan_summary(drive, pole), 1)
+    require(float(a_total) == np.float32(pole ** FULL_N), f"block_scan_summary's pole**n is {float(a_total)}")
+    require(float(last) == float(local[-1]), "block_scan_summary's carry is not the scan's last value")
+    record("block_scan_summary", 1, abs_err(local, want), SCAN_TOL, lambda: iir.block_scan_summary(drive, pole))
+    del local
+
+    # filtfilt_first_order_truncated: two launches; each pass may round
+    # its float32 output one ulp off the twin's, so two ulps
+    smoother = iir.one_pole_filter(-2.0, 44.0)  # the limiter's attack smoother
+    signal = torch.from_numpy(rng.rand(FULL_N).astype(np.float32)).to(device)
+    length = FULL_N - PUBLIC_CUT
+    got = counted("filtfilt_first_order_truncated",
+                  lambda: iir.filtfilt_first_order_truncated(smoother, signal, length), 2)
+    want_ff = twin(lambda: iir.filtfilt_first_order_truncated(smoother, signal, length))
+    require(bool((got[length:] == 0).all()), "filtfilt_first_order_truncated is not 0 past its length")
+    record("filtfilt_first_order_truncated", 2, abs_err(got, want_ff), 2 * SCAN_TOL,
+           lambda: iir.filtfilt_first_order_truncated(smoother, signal, length))
+    del signal, want_ff
+
+    # scan_first_order_ds: hi + lo against the float64 twin
+    lo = torch.from_numpy((rng.randn(FULL_N) * 1e-9).astype(np.float32)).to(device)
+    hi_out, lo_out = counted("scan_first_order_ds", lambda: iir.scan_first_order_ds(drive, lo, pole), 1)
+    want_ds = real_twin(drive64 + lo.double(), 1.0, 0.0, -pole)
+    record("scan_first_order_ds", 1, rel_err(hi_out.double() + lo_out.double(), want_ds), SCAN_REL_TOL_F64,
+           lambda: iir.scan_first_order_ds(drive, lo, pole))
+    del lo, hi_out, lo_out, want_ds
+
+    # carried_scan over four shards of the card against the whole track's scan
+    grid = timeshard.TimeGrid([device] * PUBLIC_SHARDS)
+    parts = grid.split(drive, FULL_N // PUBLIC_SHARDS)
+    expected = 2 * len(grid.devices)
+    got = counted("carried_scan", lambda: grid.join(timeshard.carried_scan(parts, pole, grid), FULL_N, device),
+                  expected)
+    whole = iir.scan_first_order(drive, pole)
+    record("carried_scan", expected, abs_err(got, whole), SCAN_TOL,
+           lambda: timeshard.carried_scan(parts, pole, grid))
+    del parts, got, whole, want, drive64
+
+    # fft_convolve_same with a 4096-tap FIR, and masked_average_spectrum_flat,
+    # against the same calls on the CPU in float64
+    config_fft = 4096
+    x = rng.randn(FULL_N) * 0.3
+    fir = rng.randn(config_fft) * np.hanning(config_fft) / 64.0
+    x_card = torch.from_numpy(x.astype(np.float32)).to(device)
+    fir_card = torch.from_numpy(fir.astype(np.float32)).to(device)
+    got = convolve.fft_convolve_same(x_card, fir_card).cpu().numpy()
+    want_conv = convolve.fft_convolve_same(torch.from_numpy(x), torch.from_numpy(fir)).numpy()
+    conv_snr = snr_db(want_conv, got)
+    require(conv_snr >= SNR_GATE_DB, f"fft_convolve_same at {conv_snr} dB < {SNR_GATE_DB} dB")
+    ms = cuda_ms(lambda: convolve.fft_convolve_same(x_card, fir_card), 10)
+    ops["fft_convolve_same"] = {"k2_launches": 0, "snr_db": conv_snr, "gate_db": SNR_GATE_DB, "ms": ms}
+    print(f"public op fft_convolve_same: {ms:.4f} ms a call (10 calls), {conv_snr:.1f} dB", flush=True)
+    del got, want_conv, fir_card
+
+    divisions, piece = piece_division(FULL_N, 15 * SR)
+    mask = (rng.rand(divisions) > 0.4).astype(np.float32)
+    mask_card = torch.from_numpy(mask).to(device)
+    got = spectrum.masked_average_spectrum_flat(x_card, mask_card, piece, divisions, config_fft)
+    want_spec = spectrum.masked_average_spectrum_flat(
+        torch.from_numpy(x), torch.from_numpy(mask.astype(np.float64)), piece, divisions, config_fft
+    )
+    err = float((got.cpu().double() - want_spec).abs().max() / want_spec.abs().max())
+    require(err <= SPECTRUM_REL_TOL, f"masked_average_spectrum_flat: error {err} > {SPECTRUM_REL_TOL}")
+    ms = cuda_ms(lambda: spectrum.masked_average_spectrum_flat(x_card, mask_card, piece, divisions, config_fft), 10)
+    ops["masked_average_spectrum_flat"] = {"k2_launches": 0, "max_rel_err": err, "tolerance": SPECTRUM_REL_TOL,
+                                           "ms": ms}
+    print(f"public op masked_average_spectrum_flat: {ms:.4f} ms a call (10 calls), error {err:.3e}", flush=True)
+    return {"n": FULL_N, "pole": pole, "shards": PUBLIC_SHARDS, "length": length, "ops": ops}
+
+
 def main() -> None:
     try:
         import torch
@@ -1913,7 +2072,13 @@ def main() -> None:
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matchering_tpu")]
     require(not leaked, f"the port imported {leaked} on its way")
 
-    # --- 12. results ---
+    # --- 12. the public op library on the card: the scans on K2, the FFT ops ---
+    public = public_ops_path(torch, device, cuda_ms, release)
+    print(json.dumps({"public_ops": public}), flush=True)
+    k2["launches_public_ops"] = {name: op["k2_launches"] for name, op in public["ops"].items()
+                                 if op["k2_launches"]}
+
+    # --- 13. results ---
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({
         "ok": True,

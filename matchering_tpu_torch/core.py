@@ -62,11 +62,30 @@ def _variant_key(result: Result) -> str:
     return "normalized" if result.normalize else "raw"
 
 
+def render_variants(target_audio, reference_audio, config: Config, keys, *, device=None) -> dict:
+    """Run the mastering graph on ``device`` (``cuda`` unless named),
+    rendering exactly the variants in ``keys`` ("limited", "raw",
+    "normalized"): a dict of variant key -> (n, 2) tensor, the keys not
+    asked for absent."""
+    keys = set(keys)
+    limited, raw, normalized = stages_main(
+        target_audio,
+        reference_audio,
+        config,
+        need_default="limited" in keys,
+        need_no_limiter="raw" in keys,
+        need_no_limiter_normalized="normalized" in keys,
+        device=resolve_device(device),
+    )
+    rendered = {"limited": limited, "raw": raw, "normalized": normalized}
+    return {k: v for k, v in rendered.items() if v is not None}
+
+
 def _export(results: List[Result], variants: Dict[str, torch.Tensor], config: Config) -> None:
-    """Write each result from its variant.  Each variant crosses to the
-    host once, at its working dtype (``to_host``); the writers widen the
-    samples to float64 where they quantise, so the bytes are those of a
-    float64 export."""
+    """Write each result from its variant (``render_variants``' dict).
+    Each variant crosses to the host once, at its working dtype
+    (``to_host``); the writers widen the samples to float64 where they
+    quantise, so the bytes are those of a float64 export."""
     host = {}
     for result in results:
         key = _variant_key(result)
@@ -111,16 +130,7 @@ def process(
     _assert_graph_ready((target_track, reference_track), config)
 
     wanted = {_variant_key(r) for r in results}
-    limited, raw, normalized = stages_main(
-        target_track[0],
-        reference_track[0],
-        config,
-        need_default="limited" in wanted,
-        need_no_limiter="raw" in wanted,
-        need_no_limiter_normalized="normalized" in wanted,
-        device=device,
-    )
-    variants = {"limited": limited, "raw": raw, "normalized": normalized}
+    variants = render_variants(target_track[0], reference_track[0], config, wanted, device=device)
 
     debug_line()
     info(Code.INFO_EXPORTING)
@@ -129,7 +139,7 @@ def process(
     if preview_target or preview_result:
         # any rendered variant serves as the preview source, preferring the
         # limited one (reference ``core.py:112-118``)
-        source = next(v for v in (limited, raw, normalized) if v is not None)
+        source = next(variants[k] for k in ("limited", "raw", "normalized") if k in variants)
         create_preview(target_track[0], source, config, preview_target, preview_result)
 
     debug_line()

@@ -42,8 +42,18 @@ def ms_to_lr(mid: torch.Tensor, side: torch.Tensor) -> torch.Tensor:
     return torch.stack([mid + side, mid - side], dim=-1)
 
 
+def mono_to_stereo(array: torch.Tensor) -> torch.Tensor:
+    """(..., n, 1) -> (..., n, 2): each channel repeated twice along the
+    last axis (the JAX package's ``jnp.repeat(array, 2, axis=1)``)."""
+    return torch.repeat_interleave(array, 2, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Gain / amplitude
+
+
+def amplify(array: torch.Tensor, gain) -> torch.Tensor:
+    return array * gain
 
 
 def clip(array: torch.Tensor, to=1.0) -> torch.Tensor:
@@ -117,13 +127,25 @@ def rms(array: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.square(array), dim=-1) / array.shape[-1])
 
 
+def unfold(array: torch.Tensor, piece_size: int, divisions: int) -> torch.Tensor:
+    """(..., n) -> (..., divisions, piece_size), truncating the tail
+    (reference ``dsp.py:71-73``)."""
+    pieces = array[..., : piece_size * divisions]
+    return pieces.reshape(pieces.shape[:-1] + (divisions, piece_size))
+
+
+def batch_rms(pieces: torch.Tensor) -> torch.Tensor:
+    """RMS of each row of (..., divisions, piece_size) pieces (reference
+    ``dsp.py:80-86``, there a batched matmul; here a reduction)."""
+    return torch.sqrt(torch.mean(torch.square(pieces), dim=-1))
+
+
 def piece_rms_flat(array: torch.Tensor, piece_size: int, divisions: int) -> torch.Tensor:
     """Per-piece RMS (..., divisions) of the first ``divisions * piece_size``
-    samples of each channel (reference ``dsp.py:71-86``: unfold, then a
-    row-wise RMS)."""
-    pieces = array[..., : piece_size * divisions]
-    pieces = pieces.reshape(pieces.shape[:-1] + (divisions, piece_size))
-    return torch.sqrt(torch.mean(torch.square(pieces), dim=-1))
+    samples of each channel: ``batch_rms(unfold(...))``.  The JAX package
+    sums aligned chunks instead, for its compiler; a view needs no such
+    detour."""
+    return batch_rms(unfold(array, piece_size, divisions))
 
 
 _CHUNK = 4096  # the aligned chunk of the dynamic piece sums (the JAX package's)

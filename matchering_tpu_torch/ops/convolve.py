@@ -1,7 +1,7 @@
 """Long FIR convolution via overlap-save block FFTs (PyTorch, ``torch.fft``).
 
-Counterpart of ``matchering_tpu.ops.convolve.fft_convolve_same_batch``
-(reference ``scipy.signal.fftconvolve(x, fir, "same")``,
+Counterpart of ``matchering_tpu.ops.convolve`` (reference
+``scipy.signal.fftconvolve(x, fir, "same")``,
 ``matchering/stage_helpers/match_frequencies.py:104-119``).  Short signals
 take one FFT; longer ones are cut into overlapping blocks of ``block_fft``
 points, each run through rFFT -> spectral multiply -> irFFT as one batch.
@@ -48,3 +48,11 @@ def fft_convolve_same_batch(
     h = torch.fft.rfft(firs, n=nfft)[:, None, :]
     segs = torch.fft.irfft(torch.fft.rfft(blocks) * h, n=nfft)[..., discard:]
     return segs.reshape(c, -1)[:, start : start + n]
+
+
+def fft_convolve_same(x: torch.Tensor, fir: torch.Tensor, block_fft: int = 1 << 16) -> torch.Tensor:
+    """``scipy.signal.fftconvolve(x, fir, mode="same")`` for 1-D inputs:
+    one FFT for a short signal, else overlap-save blocks of ``block_fft``
+    points, raised to the next power of two of ``2 * taps`` where the FIR
+    needs more room than ``block_fft // 2``."""
+    return fft_convolve_same_batch(x[None], fir[None], block_fft)[0]

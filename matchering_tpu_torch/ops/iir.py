@@ -21,7 +21,11 @@ Semantics kept exactly:
   order, run as ``sosfilt(butter(..., output="sos"), x)`` above order 1:
   scipy's sections in scipy's order, each on K3;
 * ``lfilter`` — ``scipy.signal.lfilter(b, a, x)`` with zero state at any
-  order: K2 for order 1, K3 for order 2, above that ``tf2sos``'s cascade.
+  order: K2 for order 1, K3 for order 2, above that ``tf2sos``'s cascade;
+* the JAX package's public scans on K2: ``scan_first_order`` (one launch),
+  ``block_scan_summary``, ``filtfilt_first_order_truncated`` (two) and
+  ``scan_first_order_ds`` with ``ds_pole_powers``, whose double-single
+  arithmetic becomes float64 (see there).
 
 The JAX package runs each section (and ``lfilter`` above order 1) as a
 2x2 (or n x n) affine ``associative_scan`` (``iir.py:970-1049``).  At the
@@ -39,7 +43,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..kernels import scan, sos
-from ..utils import RowInts
+from ..utils import RowInts, resolve_device, torch_dtype
 
 
 class FirstOrderFilter(NamedTuple):
@@ -88,6 +92,67 @@ def lfilter_first_order(
     ``lfilter(..., x[::-1], zi)[::-1]``; with ``lengths`` each row of x
     ends at its own length (``scan.first_order_filter``)."""
     return scan.first_order_filter(x, filt.b0, filt.b1, filt.a1, zi, reverse, lengths)
+
+
+def _host_pole(pole) -> float:
+    """The pole as a host float: K2 takes its pole, and the pole's powers,
+    from the host.  A 0-d tensor is read back once (a host sync)."""
+    return float(pole.item()) if isinstance(pole, torch.Tensor) else float(pole)
+
+
+def scan_first_order(drive: torch.Tensor, pole) -> torch.Tensor:
+    """Solve ``y[i] = drive[i] + pole * y[i-1]`` from zero state along the
+    last axis of a (n,) or (rows, n) drive: ``lfilter([1, 0], [1, -pole],
+    drive)``, one K2 launch (its plain twin on a CPU tensor).
+
+    ``pole``: a host float, or a 0-d tensor, which is read back to the host
+    once.  That read, and the length of :func:`filtfilt_first_order_truncated`
+    given as a 0-d tensor, are the only host syncs of these scans: they
+    stand where the JAX package falls back to an ``associative_scan`` for a
+    traced pole, since K2 takes the pole's powers from the host."""
+    return scan.first_order_filter(drive.contiguous(), 1.0, 0.0, -_host_pole(pole))
+
+
+def block_scan_summary(drive: torch.Tensor, pole) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The zero-state scan of a block and the block's affine carry map:
+    ``(local, (pole**n, local[..., -1]))``.  The block's true output is
+    ``local + pole**(i+1) * carry_in`` and it composes into a chain as
+    ``carry_out = pole**n * carry_in + local[..., -1]``.  One K2 launch."""
+    pole = _host_pole(pole)
+    local = scan_first_order(drive, pole)
+    a_total = torch.full((), pole ** drive.shape[-1], dtype=drive.dtype, device=drive.device)
+    return local, (a_total, local[..., -1])
+
+
+def _split(y: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float64 tensor as the (hi, lo) pair of ``dtype`` whose sum it is
+    to about twice that dtype's precision."""
+    hi = y.to(dtype)
+    return hi, (y - hi.to(torch.float64)).to(dtype)
+
+
+def scan_first_order_ds(drive_hi: torch.Tensor, drive_lo: torch.Tensor, pole) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The solve of :func:`scan_first_order` for a drive carried as a
+    float32 (hi, lo) pair, returned as one: ``y_hi + y_lo`` holds about
+    double precision.
+
+    The JAX package carries the scan itself in double-single arithmetic,
+    since its TPU has no float64.  The H100 runs float64 natively, so this
+    computes the same function directly: ``hi + lo`` summed in float64, one
+    K2 launch at float64, and the result split back into a pair of the
+    drive's dtype."""
+    drive = drive_hi.to(torch.float64) + drive_lo.to(torch.float64)
+    return _split(scan_first_order(drive, pole), drive_hi.dtype)
+
+
+def ds_pole_powers(pole: float, n: int, dtype, *, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pole**(1..n)`` as a (hi, lo) pair of ``dtype`` on ``device``
+    (``cuda`` unless named).  Each power is one float64 ``pow`` on the
+    device, split like :func:`scan_first_order_ds`'s result; the JAX
+    package builds the pair as double-single products of host factors,
+    for want of float64 on its TPU."""
+    exponents = torch.arange(1, n + 1, dtype=torch.float64, device=resolve_device(device))
+    return _split(torch.pow(float(pole), exponents), torch_dtype(dtype))
 
 
 _PADLEN = 6  # scipy.signal.filtfilt's default odd extension for a first-order filter
@@ -157,6 +222,22 @@ def _filtfilt_rows(
         state = b1 * y_ext[k] - a1 * yb
     y = lfilter_first_order(filt, y_fwd, zi=state, reverse=True, lengths=ext_lengths)
     return y[:, padlen:]
+
+
+def filtfilt_first_order_truncated(filt: FirstOrderFilter, x: torch.Tensor, length) -> torch.Tensor:
+    """``scipy.signal.filtfilt(b, a, x[:length])`` of a (n,) zero-padded
+    track, 0 at and past ``length``: the one-row form of
+    :func:`filtfilt_first_order` with ``lengths``, two K2 launches.
+
+    ``length``: an int, a one-row ``RowInts``, or a 0-d int tensor, read
+    back to the host once (K2 checks its lengths on the host); at least 7
+    (scipy's odd extension reads ``x[length-7 .. length-1]``)."""
+    if not isinstance(length, RowInts):
+        host = int(length.item()) if isinstance(length, torch.Tensor) else int(length)
+        length = RowInts((host,), torch.full((1,), host, dtype=torch.int64, device=x.device))
+    if not _PADLEN + 1 <= length.host[0] <= x.shape[-1]:
+        raise ValueError(f"length {length.host[0]} is outside [7, {x.shape[-1]}]")
+    return filtfilt_first_order(filt, x.reshape(1, -1).contiguous(), length)[0]
 
 
 class SecondOrderSection(NamedTuple):

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import resolve_device, torch_dtype
 from . import lowess
 
 
@@ -80,11 +81,17 @@ class Smoothing(NamedTuple):
     lowess: Optional[lowess.StagedPlan] = None
 
 
-def lowess_folds(config) -> bool:
-    """True where the configured LOWESS is a fixed linear map with an
-    anchor subset, folded into the operators on the host
+def folds(lowess_params: Tuple[float, int, float]) -> bool:
+    """True where a LOWESS of (frac, it, delta) is a fixed linear map with
+    an anchor subset, folded into the operators on the host
     (``matchering_tpu/ops/smoothing.py:88-93``)."""
-    return config.lowess_it == 0 and config.lowess_delta > 0 and not config.lowess_exact
+    _, it, delta = lowess_params
+    return it == 0 and delta > 0
+
+
+def lowess_folds(config) -> bool:
+    """:func:`folds` for the LOWESS of a ``Config``."""
+    return folds(lowess_parameters(config))
 
 
 def lowess_parameters(config) -> Tuple[float, int, float]:
@@ -94,15 +101,57 @@ def lowess_parameters(config) -> Tuple[float, int, float]:
     return float(config.lowess_frac), int(config.lowess_it), float(delta)
 
 
+def grid_rates(config) -> Tuple[int, int, int]:
+    """(sample_rate, fft_size, oversampling): what the grids depend on."""
+    return config.internal_sample_rate, config.fft_size, config.lin_log_oversampling
+
+
+def host_operators(
+    sample_rate: int, fft_size: int, oversampling: int, lowess_params=None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The (to_log, to_lin) float64 numpy operators: with the LOWESS of
+    ``lowess_params = (frac, it, delta)`` folded in where it :func:`folds`,
+    else the plain interpolation operators."""
+    if lowess_params is not None and folds(lowess_params):
+        frac, _, delta = lowess_params
+        return folded_operators(sample_rate, fft_size, oversampling, frac, delta)
+    return interpolation_operators(sample_rate, fft_size, oversampling)
+
+
 def host_operators_for_config(config) -> Tuple[np.ndarray, np.ndarray]:
-    """The (to_log, to_lin) float64 numpy operators of a ``Config``, equal
-    to the JAX package's ``operator_arrays_for_config``: with the LOWESS
-    folded in where :func:`lowess_folds`, else the plain interpolation
-    operators."""
-    rates = (config.internal_sample_rate, config.fft_size, config.lin_log_oversampling)
-    if lowess_folds(config):
-        return folded_operators(*rates, config.lowess_frac, config.lowess_delta)
-    return interpolation_operators(*rates)
+    """:func:`host_operators` of a ``Config``, equal to the JAX package's
+    ``operator_arrays_for_config``."""
+    return host_operators(*grid_rates(config), lowess_parameters(config))
+
+
+def interpolation_operator_arrays(
+    sample_rate: int, fft_size: int, oversampling: int, dtype, lowess_params=None, *, device=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (to_log, to_lin) operators of :func:`host_operators` as tensors
+    of ``dtype`` (a torch dtype or its name) on ``device`` (``cuda``
+    unless named), staged once per (grids, LOWESS, dtype, device) in the
+    cache of ``state.operators_for_config``.  Where ``lowess_params`` does
+    not fold, the pair is the plain interpolation and the LOWESS plan is
+    staged beside it there."""
+    from ..state import staged_operators
+
+    if lowess_params is not None:
+        frac, it, delta = lowess_params
+        lowess_params = (float(frac), int(it), float(delta))
+    staged = staged_operators(
+        (sample_rate, fft_size, oversampling), lowess_params, torch_dtype(dtype), resolve_device(device)
+    )
+    return staged.to_log, staged.to_lin
+
+
+def operator_arrays_for_config(config, *, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (to_log, to_lin) pair of ``state.operators_for_config(config,
+    device)``: the operators ``stages.master_graph`` runs with, the it=0
+    LOWESS folded in where it folds."""
+    from ..state import operators_for_config
+
+    staged = operators_for_config(config, resolve_device(device))
+    return staged.to_log, staged.to_lin
 
 
 def smooth_exponentially(matching_fft: torch.Tensor, operators: Smoothing) -> torch.Tensor:

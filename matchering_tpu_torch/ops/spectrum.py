@@ -1,13 +1,13 @@
 """Framed spectrum analysis (PyTorch, ``torch.fft``).
 
-Counterpart of ``masked_average_spectrum_flat_pair`` and
-``masked_average_spectrum_dynamic_pair`` of ``matchering_tpu.ops.spectrum`` (reference
+Counterpart of ``matchering_tpu.ops.spectrum`` (reference
 ``matchering/stage_helpers/match_frequencies.py:30-42``): non-overlapping
 boxcar frames of ``fft_size`` samples taken from the start of every piece,
 |rFFT| scaled by ``1/fft_size``, averaged over the frames of the
 mask-selected pieces.  Each channel is its own real FFT here; the JAX
-package packs both into one complex transform for its backend.  Channels
-are (..., n) or (B, n); masks and spectra carry the same leading axes.
+package's ``_pair`` forms pack both into one complex transform for its
+backend.  Channels are (..., n) or (B, n); masks and spectra carry the same
+leading axes.
 """
 
 from __future__ import annotations
@@ -28,6 +28,72 @@ def _frames(signal: torch.Tensor, piece_size: int, divisions: int, fft_size: int
     return pieces[..., : frames_per_piece * fft_size].reshape(lead + (-1, fft_size))
 
 
+def framed_magnitude_mean(pieces: torch.Tensor, fft_size: int) -> torch.Tensor:
+    """Per-piece mean boxcar |rFFT|/fft_size spectrum:
+    (..., divisions, piece_size) -> (..., divisions, fft_size//2 + 1)."""
+    frames_per_piece = pieces.shape[-1] // fft_size
+    frames = pieces[..., : frames_per_piece * fft_size]
+    frames = frames.reshape(pieces.shape[:-1] + (frames_per_piece, fft_size))
+    return torch.mean(torch.abs(torch.fft.rfft(frames, dim=-1)) / fft_size, dim=-2)
+
+
+def masked_average_spectrum(pieces: torch.Tensor, mask: torch.Tensor, fft_size: int) -> torch.Tensor:
+    """Average |rFFT| spectrum over the frames of the mask-selected pieces
+    of (..., divisions, piece_size) ``pieces``; ``mask`` is (..., divisions)
+    0/1 weights.  Returns (..., fft_size//2 + 1)."""
+    per_piece = framed_magnitude_mean(pieces, fft_size)
+    weight = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    return torch.sum(per_piece * mask[..., None], dim=-2) / weight[..., None]
+
+
+def masked_average_spectrum_flat(
+    array: torch.Tensor, mask: torch.Tensor, piece_size: int, divisions: int, fft_size: int
+) -> torch.Tensor:
+    """:func:`masked_average_spectrum` straight from the (..., n) signal:
+    the pieces' frames are a view of it, with no (divisions, piece_size)
+    copy.  Returns (..., fft_size//2 + 1)."""
+    frames_per_piece = piece_size // fft_size
+    weights = torch.repeat_interleave(mask, frames_per_piece, dim=-1)
+    selected = torch.clamp(torch.sum(mask, dim=-1), min=1.0) * frames_per_piece
+    frames = _frames(array, piece_size, divisions, fft_size)
+    mag = torch.abs(torch.fft.rfft(frames, dim=-1)) / fft_size
+    return torch.sum(mag * weights[..., None], dim=-2) / selected[..., None]
+
+
+def masked_average_spectrum_dynamic(
+    array: torch.Tensor,
+    mask: torch.Tensor,
+    piece_size,
+    div_max: int,
+    fft_size: int,
+    fpp_max: int,
+) -> torch.Tensor:
+    """:func:`masked_average_spectrum_flat` of a (n,) signal whose piece
+    size is a 0-d int tensor (or an int): the true-length analysis of a
+    zero-padded track.  The tensor is never read back to the host: frame
+    (p, f) starts at ``p * piece_size + f * fft_size`` and the frames are
+    gathered through an index built on the device, over the signal padded
+    by ``fpp_max * fft_size`` zeros.  Frames past ``piece_size //
+    fft_size`` carry zero weight, and ``mask`` (div_max,) must already be
+    zero past the division count (``basics.loudest_piece_stats_masked``),
+    as in the JAX package.  Returns (fft_size//2 + 1,)."""
+    dtype = array.dtype
+    slice_len = fpp_max * fft_size
+    piece_size = torch.as_tensor(piece_size, device=array.device)
+    padded = torch.nn.functional.pad(array, (0, slice_len))
+    # clamped into the padded signal, as ``lax.dynamic_slice`` clamps its start
+    starts = torch.clamp(torch.arange(div_max, device=array.device) * piece_size, max=array.shape[-1])
+    index = starts[:, None] + torch.arange(slice_len, device=array.device)
+    frames = padded[index].reshape(div_max, fpp_max, fft_size)
+    mag = torch.abs(torch.fft.rfft(frames, dim=-1)) / fft_size
+    frames_per_piece = piece_size // fft_size
+    frame_valid = (torch.arange(fpp_max, device=array.device) < frames_per_piece).to(dtype)
+    weights = mask[:, None] * frame_valid[None, :]
+    total = torch.sum(mag * weights[:, :, None], dim=(0, 1))
+    selected = torch.clamp(torch.sum(mask), min=1.0)
+    return total / (selected * torch.clamp(frames_per_piece, min=1))
+
+
 def masked_average_spectrum_flat_pair(
     signal_a: torch.Tensor,
     signal_b: torch.Tensor,
@@ -36,19 +102,13 @@ def masked_average_spectrum_flat_pair(
     divisions: int,
     fft_size: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked average magnitude spectra of two channels, each
+    """:func:`masked_average_spectrum_flat` of two channels, each
     ``(..., fft_size//2 + 1)``; ``mask`` is the (..., divisions) 0/1 piece
     mask, and the geometry is the same for every row."""
-    frames_per_piece = piece_size // fft_size
-    weights = torch.repeat_interleave(mask, frames_per_piece, dim=-1)
-    selected = torch.clamp(torch.sum(mask, dim=-1), min=1.0) * frames_per_piece
-
-    def average(signal):
-        frames = _frames(signal, piece_size, divisions, fft_size)
-        mag = torch.abs(torch.fft.rfft(frames, dim=-1)) / fft_size
-        return torch.sum(mag * weights[..., None], dim=-2) / selected[..., None]
-
-    return average(signal_a), average(signal_b)
+    return tuple(
+        masked_average_spectrum_flat(signal, mask, piece_size, divisions, fft_size)
+        for signal in (signal_a, signal_b)
+    )
 
 
 def masked_average_spectrum_dynamic_pair(

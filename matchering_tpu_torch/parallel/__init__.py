@@ -18,15 +18,19 @@ Counterpart of ``matchering_tpu.parallel``:
 
 from . import batch, launch, mesh, timeshard
 from .batch import bucket_pad, master_batch, master_pairs
+from .launch import global_mesh, initialize, master_batch_distributed
 from .mesh import make_mesh
 from .timeshard import master_sharded
 
 __all__ = [
     "batch",
     "bucket_pad",
+    "global_mesh",
+    "initialize",
     "launch",
     "make_mesh",
     "master_batch",
+    "master_batch_distributed",
     "master_pairs",
     "master_sharded",
     "mesh",

@@ -22,9 +22,10 @@ to the shard's device, ``all_gather`` a concatenation there, ``psum`` and
 * **first-order IIR stages** on K2, carried across blocks: each block is
   filtered from zero state (in float64, for its exact end state), the D
   affine summaries ``z_out = pole**len * z_in + z_end`` are composed on the
-  device, and each block is filtered again with its carry as K2's ``zi``;
-  filtfilt's 6-sample odd extensions are computed at the edge blocks as in
-  the single-device ``ops.iir.filtfilt_first_order``;
+  device, and each block is filtered again with its carry as K2's ``zi``
+  (``carried_scan`` is that carry for a bare drive and pole); filtfilt's
+  6-sample odd extensions are computed at the edge blocks as in the
+  single-device ``ops.iir.filtfilt_first_order``;
 * **global statistics** — piece RMS from per-block piece sums, averaged
   spectra from the frames that start in each block (one ``fft_size`` right
   halo), and peaks, each combined over the blocks.
@@ -52,9 +53,9 @@ import torch
 from ..config import Config
 from ..kernels import envelope
 from ..ops import basics, convolve, iir, sliding
-from ..stages import MasterOutput, _fir_from_spectra, check_lengths
+from ..stages import MasterOutput, _fir_from_spectra, check_lengths, piece_division
 from ..state import operators_for_config
-from ..utils import RowInts, ms_to_samples, resolve_device, to_device
+from ..utils import RowInts, make_odd, ms_to_samples, resolve_device, to_device
 from .mesh import Mesh, make_mesh, single_axis_mesh
 
 Sharded = List[torch.Tensor]  # one (R, block, ...) tensor per device
@@ -250,6 +251,29 @@ def _carried(
     return out, leaving
 
 
+def carried_scan(parts: Sharded, pole, grid: TimeGrid, init=None, reverse: bool = False) -> Sharded:
+    """The solve of ``y[i] = drive[i] + pole * y[i-1]`` over the whole
+    sharded drive ``parts``, left to right, or right to left with
+    ``reverse`` (``y[i] = drive[i] + pole * y[i+1]``): the sharded
+    ``ops.iir.scan_first_order``.  ``init``: None (zero state), or the
+    affine map ``(a0, u0)`` applied before the chain's first block, as in
+    the JAX package; the global entry state is zero, so only ``u0``, the
+    value of ``y`` before the chain's first sample, matters.  ``pole`` is
+    a host float or a 0-d tensor read back once (``ops.iir.scan_first_order``).
+
+    The drive is ``lfilter([1, 0], [1, -pole])``'s input, so this is
+    :func:`_carried` of that filter, whose DF2T state is ``pole * y``: two
+    K2 launches per device, as for the sharded filters, which go through
+    the same carry (their drives ``b0*x[i] + b1*x[i-1]`` are formed by K2
+    itself, in float64, across the shards' edges)."""
+    pole = iir._host_pole(pole)
+    states = None
+    if init is not None:
+        u0 = init[1]
+        states = [pole * torch.as_tensor(u0, dtype=torch.float64).to(d) for d in grid.devices]
+    return _carried(iir.FirstOrderFilter(1.0, 0.0, -pole), parts, grid, reverse=reverse, init=states)[0]
+
+
 def lfilter_first_order_sharded(filt: iir.FirstOrderFilter, parts: Sharded, grid: TimeGrid) -> Sharded:
     """Sharded ``scipy.signal.lfilter([b0, b1], [1, a1], x)`` with zero
     state: two K2 launches per device."""
@@ -333,6 +357,31 @@ def filtfilt_first_order_sharded_truncated(
 # Sliding maxima
 
 
+def _reflected(parts: Sharded, half: int, grid: TimeGrid) -> Sharded:
+    """Each shard (R, block, ...) extended by ``half`` samples of its
+    neighbours on either side, mirrored at the track's edges (ndimage's
+    'reflect', which repeats the edge sample)."""
+    block = parts[0].shape[1]
+    out = []
+    for g, (x, left, right) in enumerate(zip(parts, grid.halo_left(parts, half), grid.halo_right(parts, half))):
+        index = grid.index[g].reshape((-1,) + (1,) * (x.ndim - 1))
+        left = torch.where(index == 0, torch.flip(x[:, :half], (1,)), left)
+        right = torch.where(index == grid.count - 1, torch.flip(x[:, block - half:], (1,)), right)
+        out.append(torch.cat([left, x, right], dim=1))
+    return out
+
+
+def sliding_max_attack_sharded(parts: Sharded, window_size: int, grid: TimeGrid) -> Sharded:
+    """Sharded centred sliding max of the attack stage (reference
+    ``hyrax.py:35-37``, ``ops.sliding.sliding_max_attack``) over (R, block)
+    shards: odd window ``2*make_odd(window_size) - 1``, 'reflect' at the
+    track's edges.  The limiter runs this max inside K1
+    (:func:`limiter_front_end_sharded`); this is the max alone, in torch
+    ops."""
+    size = 2 * make_odd(window_size) - 1
+    return [sliding._start_max(rows, size) for rows in _reflected(parts, size // 2, grid)]
+
+
 def limiter_front_end_sharded(
     parts: Sharded, threshold: float, attack: int, grid: TimeGrid, length: Optional[int] = None
 ) -> Tuple[Sharded, Sharded]:
@@ -342,16 +391,10 @@ def limiter_front_end_sharded(
     the track's edges (K1's own 'reflect').  With ``length`` (ending in the
     last shard) the last shard reflects there, K1's length mode, and both
     outputs are 0 past it."""
-    window = envelope.window_for(attack)
-    half = window // 2
+    half = envelope.window_for(attack) // 2
     block = parts[0].shape[1]
-    lefts, rights = grid.halo_left(parts, half), grid.halo_right(parts, half)
     gains, slided = [], []
-    for g, (x, left, right) in enumerate(zip(parts, lefts, rights)):
-        index = grid.index[g][:, None, None]
-        left = torch.where(index == 0, torch.flip(x[:, :half], (1,)), left)
-        right = torch.where(index == grid.count - 1, torch.flip(x[:, block - half:], (1,)), right)
-        rows = torch.cat([left, x, right], dim=1).contiguous()
+    for g, rows in enumerate(_reflected(parts, half, grid)):
         lengths = None
         if length is not None:
             last = length - (grid.count - 1) * block
@@ -417,6 +460,75 @@ def piece_rms_sharded(parts: Sharded, piece_size: int, divisions: int, grid: Tim
     (reference ``dsp.py:80-86`` over ``unfold``-ed pieces)."""
     sums = [_piece_sums(torch.square(x), m, piece_size, divisions) for x, m in zip(parts, grid.members)]
     return [torch.sqrt(total / piece_size) for total in grid.psum(sums)]
+
+
+def piece_rms_sharded_dynamic(
+    parts: Sharded, piece_size, divisions, div_max: int, grid: TimeGrid
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """:func:`piece_rms_sharded` with the piece geometry as 0-d int tensors
+    (or ints), never read back to the host: the true-length analysis of a
+    zero-padded track.  Each shard's piece sums are differences of its
+    float64 running energy at the piece boundaries that fall in it.
+    Returns ``(rmses, valid)``, each one (div_max,) tensor per device;
+    entries at or past ``divisions`` are meaningless and 0 in ``valid``."""
+    block = parts[0].shape[1]
+    sums, sizes, counts = [], [], []
+    for g, x in enumerate(parts):
+        size = torch.as_tensor(piece_size).to(x.device)
+        count = torch.as_tensor(divisions).to(x.device)
+        lo = grid.index[g][:, None] * block  # (R, 1)
+        in_pieces = lo + torch.arange(block, device=x.device) < size * count
+        energy = torch.square(x.to(torch.float64)) * in_pieces
+        running = torch.nn.functional.pad(torch.cumsum(energy, dim=1), (1, 0))  # (R, block + 1)
+        bounds = torch.clamp(torch.arange(div_max + 1, device=x.device) * size - lo, 0, block)
+        ends = torch.gather(running, 1, bounds)
+        sums.append(ends[:, 1:] - ends[:, :-1])
+        sizes.append(size)
+        counts.append(count)
+    dtype = parts[0].dtype
+    rmses = [torch.sqrt(total / size).to(dtype) for total, size in zip(grid.psum(sums), sizes)]
+    valid = [(torch.arange(div_max, device=c.device) < c).to(dtype) for c in counts]
+    return rmses, valid
+
+
+def masked_average_spectrum_sharded_dynamic(
+    parts: Sharded, mask, piece_size, divisions, div_max: int, fft_size: int, grid: TimeGrid
+) -> List[torch.Tensor]:
+    """:func:`masked_average_spectrum_sharded` with the piece geometry as
+    0-d int tensors (or ints), never read back to the host
+    (``matchering_tpu/parallel/timeshard.py:410-461``).  Frames are
+    numbered by their ordinal ``f`` (piece ``f // fpp``, frame ``f % fpp``
+    in it), so each shard takes the ``block // fft_size + 2`` ordinals
+    from the first frame starting in it; ``mask`` (div_max,), one tensor
+    or one per device, must already be zero past ``divisions``.  Returns
+    the (fft_size//2 + 1,) spectrum on every device."""
+    block = parts[0].shape[1]
+    local_frames = block // fft_size + 2
+    masks = _per_device(mask, grid)
+    partial, per_piece = [], []
+    for g, (x, halo, m) in enumerate(zip(parts, grid.halo_right(parts, fft_size), masks)):
+        size = torch.as_tensor(piece_size).to(x.device)
+        count = torch.as_tensor(divisions).to(x.device)
+        fpp = torch.clamp(size // fft_size, min=1)
+        lo = grid.index[g] * block  # (R,)
+        p_lo = torch.clamp(lo // torch.clamp(size, min=1), 0, div_max - 1)
+        k_lo = torch.minimum(torch.clamp(-((p_lo * size - lo) // fft_size), min=0), fpp)
+        f = (p_lo * fpp + k_lo)[:, None] + torch.arange(local_frames, device=x.device)
+        p = torch.clamp(f // fpp, 0, div_max - 1)
+        starts = p * size + (f % fpp) * fft_size
+        owned = (f < count * fpp) & (starts >= lo[:, None]) & (starts < lo[:, None] + block)
+        offsets = torch.clamp(starts - lo[:, None], 0, block)
+        windows = torch.cat([x, halo], dim=1).unfold(1, fft_size, 1)
+        frames = windows[torch.arange(x.shape[0], device=x.device)[:, None], offsets]
+        magnitude = torch.abs(torch.fft.rfft(frames, dim=-1)) / fft_size
+        # pieces shorter than one frame contribute nothing
+        weights = m[p] * owned.to(x.dtype) * (size // fft_size > 0).to(x.dtype)
+        partial.append(torch.einsum("rfk,rf->rk", magnitude, weights))
+        per_piece.append(fpp)
+    return [
+        total / (torch.clamp(torch.sum(m), min=1.0) * fpp)
+        for total, m, fpp in zip(grid.psum(partial), masks, per_piece)
+    ]
 
 
 def masked_average_spectrum_sharded(
@@ -515,13 +627,6 @@ def limit_sharded(parts: Sharded, config: Config, grid: TimeGrid, length: Option
 # The mastering chain
 
 
-def _division(n: int, max_piece_size: int) -> Tuple[int, int]:
-    """(divisions, piece_size) of a track of ``n`` samples
-    (``match_levels.py:47-59``)."""
-    divisions = n // max_piece_size + 1
-    return divisions, n // divisions
-
-
 def widest_halo(config: Config) -> int:
     """The most samples a shard lends a neighbour: the FIR's halves, one
     spectrum frame, the hold window and the attack's half window."""
@@ -552,8 +657,8 @@ def _body(
     reference = [basics.to_working_float(x, dtype) for x in reference]
     operators = [operators_for_config(config, d) for d in grid.devices]
     block = target[0].shape[1]
-    t_div, t_piece = _division(t_len, config.max_piece_size)
-    r_div, r_piece = _division(r_len, config.max_piece_size)
+    t_div, t_piece = piece_division(t_len, config.max_piece_size)
+    r_div, r_piece = piece_division(r_len, config.max_piece_size)
     report: Dict[str, torch.Tensor] = {}
 
     # --- Stage 1: match levels ---

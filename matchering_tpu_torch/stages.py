@@ -53,6 +53,14 @@ class MasterOutput(NamedTuple):
 _VARIANTS = ("result", "result_no_limiter", "result_no_limiter_normalized")
 
 
+def piece_division(n: int, max_piece_size: int) -> Tuple[int, int]:
+    """(divisions, piece_size) of a track of ``n`` samples, on the host
+    (reference ``match_levels.py:47-59``): ``divisions = n //
+    max_piece_size + 1``, ``piece_size = n // divisions``."""
+    divisions = n // max_piece_size + 1
+    return divisions, n // divisions
+
+
 class _Division(NamedTuple):
     """Piece geometry of the tracks of a batch (reference
     ``match_levels.py:47-59``): ``divisions = n // max_piece_size + 1``,
@@ -68,8 +76,7 @@ class _Division(NamedTuple):
 
     @classmethod
     def static(cls, n: int, max_piece_size: int) -> "_Division":
-        divisions = n // max_piece_size + 1
-        return cls(divisions, n // divisions, None)
+        return cls(*piece_division(n, max_piece_size), None)
 
     @classmethod
     def dynamic(cls, n: int, lengths: RowInts, max_piece_size: int) -> "_Division":

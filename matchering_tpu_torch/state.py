@@ -42,6 +42,22 @@ def config_from_dict(fields: Mapping) -> Config:
     return config
 
 
+def _stage(to_log, to_lin, device, dtype: torch.dtype, lowess_params) -> smoothing.Smoothing:
+    """The (to_log, to_lin) pair on ``device`` in ``dtype``, with the plan
+    of ``lowess_params`` staged beside it where that LOWESS does not fold
+    (None: no LOWESS)."""
+    to_log, to_lin = np.asarray(to_log), np.asarray(to_lin)
+    plan = None
+    if lowess_params is not None and not smoothing.folds(lowess_params):
+        frac, it, delta = lowess_params
+        plan = lowess.stage_plan(to_log.shape[0], frac, it, delta, torch.device(device))
+    return smoothing.Smoothing(
+        torch.as_tensor(to_log, dtype=dtype, device=device),
+        torch.as_tensor(to_lin, dtype=dtype, device=device),
+        plan,
+    )
+
+
 def operators_from_numpy(
     to_log: np.ndarray, to_lin: np.ndarray, device, dtype: torch.dtype, config: Config
 ) -> smoothing.Smoothing:
@@ -50,15 +66,7 @@ def operators_from_numpy(
     ``operator_arrays_for_config(config)``, for any config: where its LOWESS
     does not fold (``smoothing.lowess_folds``), the pair is the plain
     interpolation and the LOWESS plan is staged beside it."""
-    plan = None
-    if not smoothing.lowess_folds(config):
-        frac, it, delta = smoothing.lowess_parameters(config)
-        plan = lowess.stage_plan(config.log_grid_size, frac, it, delta, torch.device(device))
-    return smoothing.Smoothing(
-        torch.as_tensor(np.asarray(to_log), dtype=dtype, device=device),
-        torch.as_tensor(np.asarray(to_lin), dtype=dtype, device=device),
-        plan,
-    )
+    return _stage(to_log, to_lin, device, dtype, smoothing.lowess_parameters(config))
 
 
 # the staged smoothing states, oldest first
@@ -66,23 +74,31 @@ _STAGED: Dict[tuple, smoothing.Smoothing] = {}
 _STAGED_MAX = 4
 
 
-def operators_for_config(config: Config, device) -> smoothing.Smoothing:
-    """The smoothing state of ``config``, built on the host and staged on
-    ``device`` in the working dtype (the LOWESS plan in float64), once per
-    (smoothing parameters, dtype, device): the plain operators of an
-    unfolded LOWESS are 134 MB in float32 at the default ``fft_size``."""
+def staged_operators(rates, lowess_params, dtype: torch.dtype, device) -> smoothing.Smoothing:
+    """The smoothing state of the grids ``rates = (sample_rate, fft_size,
+    oversampling)`` and the LOWESS ``lowess_params = (frac, it, delta)``
+    (None: none), built on the host and staged on ``device`` in ``dtype``
+    (the LOWESS plan in float64), once per (rates, LOWESS, dtype, device):
+    the plain operators of an unfolded LOWESS are 134 MB in float32 at the
+    default ``fft_size``."""
     # the smoothing operators are float32 matmuls on the card: keep them
     # at full float32 precision (TF32 keeps about three decimal digits);
     # this is PyTorch's default, set here so the run does not depend on it
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device(device)
-    # (frac, it, delta) with delta = 0 for lowess_exact decide the smoother
-    rates = (config.internal_sample_rate, config.fft_size, config.lin_log_oversampling)
-    key = (*rates, *smoothing.lowess_parameters(config), config.torch_dtype, device)
+    key = (*rates, lowess_params, dtype, device)
     if key not in _STAGED:
         if len(_STAGED) >= _STAGED_MAX:
             del _STAGED[next(iter(_STAGED))]  # the oldest
-        to_log, to_lin = smoothing.host_operators_for_config(config)
-        _STAGED[key] = operators_from_numpy(to_log, to_lin, device, config.torch_dtype, config)
+        to_log, to_lin = smoothing.host_operators(*rates, lowess_params)
+        _STAGED[key] = _stage(to_log, to_lin, device, dtype, lowess_params)
     return _STAGED[key]
 
+
+def operators_for_config(config: Config, device) -> smoothing.Smoothing:
+    """The smoothing state of ``config`` on ``device`` in the working dtype
+    (:func:`staged_operators`; (frac, it, delta) with delta = 0 for
+    ``lowess_exact`` decide the smoother)."""
+    return staged_operators(
+        smoothing.grid_rates(config), smoothing.lowess_parameters(config), config.torch_dtype, device
+    )

@@ -56,6 +56,17 @@ def resolve_device(device=None):
     return device
 
 
+def torch_dtype(dtype):
+    """A torch dtype from a torch dtype or a numpy dtype or its name
+    ("float32", ``np.float64``)."""
+    import numpy as np
+    import torch
+
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, np.dtype(dtype).name)
+
+
 class RowInts(NamedTuple):
     """One int per row of a batch, carried both ways: ``host`` as Python
     ints, for the kernels' launch checks and host geometry such as strided

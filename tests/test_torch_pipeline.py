@@ -204,8 +204,8 @@ def test_star_import_binds_the_ports_ops_without_jax():
         "import matchering_tpu_torch.ops.iir as port_iir\n"
         "assert ops.iir.butter_lowpass is port_iir.butter_lowpass\n"
         "assert ops.__name__ == 'matchering_tpu_torch.ops'\n"
-        "assert sorted(ops.__all__) == ['basics', 'convolve', 'fir', 'iir', 'lowess', 'resample', "
-        "'sliding', 'smoothing', 'spectrum']\n"
+        "assert sorted(ops.__all__) == ['basics', 'blocks', 'convolve', 'fftpack', 'fir', 'iir', 'lowess', "
+        "'resample', 'sliding', 'smoothing', 'spectrum']\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'matchering_tpu')]\n"
         "assert not bad, bad\n"
     )
