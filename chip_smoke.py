@@ -135,10 +135,21 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    ``fft_convolve_same`` with a 4096-tap FIR (>= 95 dB) and
    ``masked_average_spectrum_flat`` (1e-5 relative) against the CPU in
    float64; each op timed over 10 calls (CUDA events);
-13. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+13. the driver entry points (``graft_entry_torch.py``) and ``bench.py``'s
+   graph body on the card: ``entry()``'s forward step on its 1.5 s /
+   1.2 s example tensors (launches counted: 1 K1, 4 K2, 0 K3; >= 95 dB
+   against the port's float64 ``master_graph`` of the pair on the CPU),
+   ``dryrun_multichip(4)`` (``master_farm`` twice over a (2, 2) mesh of
+   the card, its launches counted), and ``master_graph(...,
+   need_default=True, interp_ops=ops)`` on bench's first 180 s pair
+   with ``ops`` from ``operator_arrays_for_config``, bit for bit the
+   result of ``interp_ops=None``; each call warm, CUDA-synchronised,
+   with its wall time, and no call of a kernel's plain twin allowed;
+14. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
    kernel's batched numbers from phases 3, 7 and 8, its launches in one
    sharded ``limit()`` (phase 9), per process of phase 10's full-width
-   run and, for K2, per public scan of phase 12, and each launch's registers, shared
+   run, per call of phase 13 and, for K2, per public scan of phase 12,
+   and each launch's registers, shared
    memory and resident blocks per SM from the kernels' info queries,
    beside the grid its wrapper recorded for the timed launches), then,
    last, the device line ``{"ok": true, "device": {...}}``.
@@ -745,11 +756,11 @@ def farm_path(mt, torch, device, config, recorder, tmp):
     operators = state.operators_for_config(config, device)
 
     def batched():
-        return stages.master_graph(t_batch, r_batch, config, operators,
+        return stages.master_graph(t_batch, r_batch, config, interp_ops=operators,
                                    target_length=t_rows, reference_length=r_rows)
 
     def pairs():
-        return [stages.master_graph(t_batch[i], r_batch[i], config, operators,
+        return [stages.master_graph(t_batch[i], r_batch[i], config, interp_ops=operators,
                                     target_length=a, reference_length=b)
                 for i, (a, b) in enumerate(per_pair)]
 
@@ -1186,7 +1197,9 @@ def configs_path(mt, torch, device, cuda_ms, kernel_ms, run_process, bandwidth):
         host_ops = smoothing.host_operators_for_config(config)
         staging = {}
         for label, stage in (
-            ("uncached", lambda: state.operators_from_numpy(*host_ops, device, config.torch_dtype, config)),
+            ("uncached", lambda: smoothing.as_smoothing(host_ops, config.log_grid_size,
+                                                        smoothing.lowess_parameters(config),
+                                                        config.torch_dtype, device)),
             ("cached", lambda: state.operators_for_config(config, device)),
         ):
             walls = []
@@ -1237,7 +1250,7 @@ def configs_path(mt, torch, device, cuda_ms, kernel_ms, run_process, bandwidth):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        graph = stages.master_graph(staged_t, staged_r, config, operators,
+        graph = stages.master_graph(staged_t, staged_r, config, interp_ops=operators,
                                     target_length=t_rows, reference_length=r_rows).result
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -1670,6 +1683,98 @@ def public_ops_path(torch, device, cuda_ms, release):
     return {"n": FULL_N, "pole": pole, "shards": PUBLIC_SHARDS, "length": length, "ops": ops}
 
 
+def entry_path(mt, torch, device):
+    """Phase 13: the driver entry points of ``graft_entry_torch.py`` and
+    ``bench.py``'s graph body on the card (see the module's docstring).
+    Returns the phase's numbers, with the (K1, K2, K3) launches of each
+    call; fails on any mismatch, and on any call of a kernel's plain
+    twin."""
+    import graft_entry_torch
+    from matchering_tpu_torch.kernels import envelope, scan, sos
+    from matchering_tpu_torch.ops import smoothing
+
+    twins = [(envelope, "limiter_front_end_plain"), (scan, "first_order_filter_plain"), (sos, "sos_filter_plain")]
+    twin_calls = []
+
+    def spy(name, real):
+        def call(*args, **kwargs):
+            twin_calls.append(name)
+            return real(*args, **kwargs)
+
+        return call
+
+    def counted(label, fn):
+        """``fn()`` once, warm (it ran once before, uncounted), CUDA
+        synchronised: its output, its launches counted from 0 and its wall
+        time; a call of a plain twin fails the phase."""
+        fn()
+        torch.cuda.synchronize()
+        envelope.LAUNCHES = scan.LAUNCHES = sos.LAUNCHES = 0
+        twin_calls.clear()
+        real = [getattr(module, name) for module, name in twins]
+        for (module, name), function in zip(twins, real):
+            setattr(module, name, spy(name, function))
+        try:
+            start = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        finally:
+            for (module, name), function in zip(twins, real):
+                setattr(module, name, function)
+        launches = (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
+        require(not twin_calls, f"{label} ran the plain twins {sorted(set(twin_calls))} on the card")
+        require(launches[0] >= 1 and launches[1] >= 1, f"{label} launched K1, K2 and K3 {launches} times")
+        print(f"entry path {label}: {wall:.4f} s warm, (K1, K2, K3) launches {launches}", flush=True)
+        return out, {"wall_s": wall, "k1": launches[0], "k2": launches[1], "k3": launches[2]}
+
+    numbers = {}
+    expected = expected_launches(mt.Config())
+
+    # entry(): the flagship forward step on its example tensors on the card,
+    # against the port's float64 master_graph of the same pair on the CPU
+    forward, (target, reference) = graft_entry_torch.entry()
+    require(target.device.type == "cuda", f"entry()'s example tensors are on {target.device}")
+    got, run = counted("entry() forward", lambda: forward(target, reference))
+    require((run["k1"], run["k2"], run["k3"]) == expected,
+            f"entry()'s forward launched {(run['k1'], run['k2'], run['k3'])}, not {expected}")
+    want = mt.master_graph(target.cpu(), reference.cpu(), mt.Config(dtype="float64"), need_default=True).result
+    measured = snr_db(want.numpy(), got.cpu().numpy())
+    require(measured >= SNR_GATE_DB, f"entry()'s forward at {measured} dB < {SNR_GATE_DB} dB")
+    numbers["entry"] = {"samples": list(target.shape), "snr_db_vs_cpu_f64": measured, "gate_db": SNR_GATE_DB, **run}
+
+    # dryrun_multichip(4): master_farm twice over a (2, 2) mesh of the card
+    _, run = counted("dryrun_multichip(4)", lambda: graft_entry_torch.dryrun_multichip(4))
+    # two master_farm calls of 4 pairs, each pair one sharded limit() on the card
+    farm_expected = tuple(2 * 4 * k for k in SHARDED_LAUNCHES)
+    require((run["k1"], run["k2"], run["k3"]) == farm_expected,
+            f"dryrun_multichip(4) launched {(run['k1'], run['k2'], run['k3'])}, not {farm_expected}")
+    numbers["dryrun_multichip"] = {"n_devices": 4, "mesh": [2, 2], **run}
+
+    # bench.py's graph body with the import swapped, on its first 180 s pair:
+    # the staged operators passed in give the result of interp_ops=None bit for bit
+    config = mt.Config()
+    interp_ops = smoothing.operator_arrays_for_config(config)
+    t_pair, r_pair = (torch.from_numpy(x).to(device) for x in make_pair(FULL_SECONDS, SR, 42))
+    scale = torch.tensor(1.0, device=device)
+
+    def graph(ops):
+        return mt.master_graph(
+            t_pair * (1.0 + 1e-7 * scale), r_pair, config, need_default=True, interp_ops=ops,
+        ).result
+
+    with_ops, run = counted("bench graph (interp_ops passed)", lambda: graph(interp_ops))
+    require((run["k1"], run["k2"], run["k3"]) == expected,
+            f"bench's graph launched {(run['k1'], run['k2'], run['k3'])}, not {expected}")
+    without, run_none = counted("bench graph (interp_ops=None)", lambda: graph(None))
+    require(bool(torch.isfinite(with_ops).all()), "bench's graph gave non-finite values")
+    require(bool(torch.equal(with_ops, without)), "bench's graph differs between interp_ops passed and None")
+    checksum = float(torch.sum(torch.abs(with_ops)))
+    numbers["bench_graph"] = {"seconds": FULL_SECONDS, "checksum": checksum, "equal_to_interp_ops_none": True,
+                              "interp_ops_passed": run, "interp_ops_none": run_none}
+    return numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -2078,7 +2183,16 @@ def main() -> None:
     k2["launches_public_ops"] = {name: op["k2_launches"] for name, op in public["ops"].items()
                                  if op["k2_launches"]}
 
-    # --- 13. results ---
+    # --- 13. the driver entry points: entry(), dryrun_multichip(4), bench.py's graph body ---
+    entry = entry_path(mt, torch, device)
+    print(json.dumps({"entry_path": entry}), flush=True)
+    for index, numbers in enumerate((k1, k2, k3)):
+        numbers["launches_entry_path"] = {name: [run["k1"], run["k2"], run["k3"]][index]
+                                          for name, run in (("entry", entry["entry"]),
+                                                            ("dryrun_multichip", entry["dryrun_multichip"]),
+                                                            ("bench_graph", entry["bench_graph"]["interp_ops_passed"]))}
+
+    # --- 14. results ---
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({
         "ok": True,

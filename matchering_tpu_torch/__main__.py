@@ -65,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None, device=None) -> int:
+def main(argv=None, *, device=None) -> int:
     """Run the CLI on ``argv`` (``sys.argv[1:]`` if None) on ``device``
     (``cuda`` unless named).  With ``--time_sharded``, ``device`` may be
     a list: one time shard on each (default: every visible CUDA device)."""

@@ -121,7 +121,7 @@ def _peak_heuristics(array: torch.Tensor, config: Config) -> None:
 
 
 def check(
-    array, sample_rate: int, config: Config, name: str, device=None
+    array, sample_rate: int, config: Config, name: str, *, device=None
 ) -> Tuple[torch.Tensor, int]:
     """Condition one input track for the mastering graph: bound its length,
     stage it on ``device`` (``cuda`` unless named) as stereo, convert it to

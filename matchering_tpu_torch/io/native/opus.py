@@ -21,6 +21,7 @@ import ctypes
 import ctypes.util
 import os
 import struct
+import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -229,29 +230,30 @@ def write_available() -> bool:
     return bool(lib is not None and getattr(lib, "_mtpu_has_encoder", False))
 
 
-def _ogg_crc_table() -> np.ndarray:
-    """Ogg's CRC-32: polynomial 0x04c11db7, MSB-first, init 0, no final
-    xor (RFC 3533 §6) — NOT the zlib crc32."""
-    poly = 0x04C11DB7
-    table = np.zeros(256, dtype=np.uint64)
-    for i in range(256):
-        r = i << 24
-        for _ in range(8):
-            r = ((r << 1) ^ poly) if (r & 0x80000000) else (r << 1)
-            r &= 0xFFFFFFFF
-        table[i] = r
-    return table
-
-
-_CRC_TABLE = _ogg_crc_table()
+# every byte value with its bits in reverse order, and every pair of bytes
+# (as one uint16, either byte order) with each byte reversed in place
+_REVERSED_BYTES = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], dtype=np.uint8)
+_REVERSED_PAIRS = _REVERSED_BYTES[np.arange(1 << 16) & 0xFF].astype(np.uint16) | (
+    _REVERSED_BYTES[np.arange(1 << 16) >> 8].astype(np.uint16) << 8
+)
 
 
 def _ogg_crc(data: bytes) -> int:
-    crc = 0
-    table = _CRC_TABLE
-    for b in data:
-        crc = ((crc << 8) & 0xFFFFFFFF) ^ int(table[((crc >> 24) & 0xFF) ^ b])
-    return crc
+    """Ogg's CRC-32: polynomial 0x04c11db7, MSB-first, init 0, no final
+    xor (RFC 3533 §6) — NOT the zlib crc32, but zlib's bit-reflected CRC
+    of the same polynomial run on the bytes with their bits reversed, and
+    the result reversed back: table lookups in numpy, then zlib's C loop,
+    with no Python loop over the bytes.  ``zlib.crc32`` inverts the
+    register on entry and on exit, so a start value of 0xffffffff and a
+    final inversion leave the plain register."""
+    codes = np.frombuffer(data, dtype=np.uint8)
+    even = codes.size & ~1
+    reflected = (
+        _REVERSED_PAIRS[codes[:even].view(np.uint16)].tobytes()
+        + _REVERSED_BYTES[codes[even:]].tobytes()
+    )
+    crc = zlib.crc32(reflected, 0xFFFFFFFF) ^ 0xFFFFFFFF
+    return int(f"{crc:032b}"[::-1], 2)
 
 
 def _lacing(length: int) -> bytes:
@@ -274,6 +276,13 @@ def _ogg_page(
     crc = _ogg_crc(header + body)
     header = header[:22] + struct.pack("<I", crc) + header[26:]
     return header + body
+
+
+def _encoder_ctl(lib, enc, request: int, argument, name: str) -> None:
+    """``opus_encoder_ctl(enc, request, argument)``; raises on an error code."""
+    rc = lib.opus_encoder_ctl(enc, request, argument)
+    if rc != 0:
+        raise RuntimeError(f"opus_encoder_ctl({name}) failed (rc={rc})")
 
 
 def write_opus(
@@ -318,9 +327,11 @@ def write_opus(
     if not enc or err.value != 0:
         raise RuntimeError(f"opus encoder init failed (rc={err.value})")
     try:
-        lib.opus_encoder_ctl(enc, _OPUS_SET_BITRATE, ctypes.c_int32(bitrate))
+        _encoder_ctl(lib, enc, _OPUS_SET_BITRATE, ctypes.c_int32(bitrate), "OPUS_SET_BITRATE")
         lookahead = ctypes.c_int32(0)
-        lib.opus_encoder_ctl(enc, _OPUS_GET_LOOKAHEAD, ctypes.byref(lookahead))
+        # a failed query would leave pre_skip 0 and shift the decoded audio
+        # by the encoder's delay
+        _encoder_ctl(lib, enc, _OPUS_GET_LOOKAHEAD, ctypes.byref(lookahead), "OPUS_GET_LOOKAHEAD")
         # granules are always 48 kHz samples regardless of the coding rate
         granule_scale = 48000 // rate
         pre_skip_48k = lookahead.value * granule_scale

@@ -10,7 +10,13 @@ Overlap-save is exact, so both branches give the same linear convolution.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+
+# the overlap-save block where the caller names none
+_BLOCK_FFT = 1 << 16
 
 
 def _next_pow2(n: int) -> int:
@@ -18,10 +24,12 @@ def _next_pow2(n: int) -> int:
 
 
 def fft_convolve_same_batch(
-    signals: torch.Tensor, firs: torch.Tensor, block_fft: int = 1 << 16
+    signals: torch.Tensor, firs: torch.Tensor, block_fft: Optional[int] = None
 ) -> torch.Tensor:
     """'same' convolution of each row of ``signals`` (c, n) with the
-    matching row of ``firs`` (c, taps) -> (c, n)."""
+    matching row of ``firs`` (c, taps) -> (c, n).  ``block_fft=None``
+    picks the port's block, ``1 << 16``."""
+    block_fft = block_fft or _BLOCK_FFT
     c, n = signals.shape
     taps = firs.shape[1]
     if taps > block_fft // 2:

@@ -9,8 +9,9 @@ Counterpart of ``matchering_tpu.ops.sliding`` (reference
   does not, so the mirrored edges are built with ``flip`` and ``cat``);
 * ``sliding_max_attack`` / ``sliding_max_hold`` are the limiter's two
   window modes (centred odd window; causal left-zero-padded window);
-* ``sliding_max_attack_truncated`` is the centred window of each row of a
-  zero-padded batch with the row reflected at its own true length.
+* ``sliding_max_attack_truncated`` is the centred window reflected at a
+  track's true length: each row of a zero-padded batch at its own, or one
+  track at one length as in the JAX package.
 
 Every function works along the last axis, so (n,) and (B, n) take the same
 call.  The max over a window is built by shift doubling: ceil(log2(window))
@@ -18,6 +19,8 @@ full-length ``torch.maximum`` passes.
 """
 
 from __future__ import annotations
+
+from typing import Union
 
 import torch
 
@@ -54,28 +57,46 @@ def sliding_max_attack(array: torch.Tensor, window_size: int) -> torch.Tensor:
 
 
 def sliding_max_attack_truncated(
-    array: torch.Tensor, window_size: int, lengths: RowInts
+    array: torch.Tensor, window_size: int, length: Union[RowInts, int, torch.Tensor]
 ) -> torch.Tensor:
-    """:func:`sliding_max_attack` of each row of a (B, n) batch as if the
-    row ended at its true length L (``matchering_tpu.ops.sliding``
-    ``sliding_max_attack_truncated``: 'reflect' at the exact track end),
-    and 0 at and past L.
+    """:func:`sliding_max_attack` as if the track ended at its true length
+    L ('reflect' at the exact track end, reference ``hyrax.py:35-37``), in
+    one of two forms.
 
-    The row is read through a mirror at L: index ``j >= L`` reads
-    ``2L - j - 1``.  That needs every L to be at least the window (which
-    the JAX form needs twice over: it re-slices ``2 * window`` samples
-    before L).  This is the plain twin of K1's length mode."""
+    ``length`` a ``RowInts`` (the port's form, one L per row of a (B, n)
+    batch): the row is read through a mirror at L (index ``j >= L`` reads
+    ``2L - j - 1``), and the output is 0 at and past L.  That needs every
+    L to be at least the window.  This is the plain twin of K1's length
+    mode.
+
+    ``length`` an int or a 0-d tensor (the JAX package's form, one L for a
+    track (n,) or for every row): what ``matchering_tpu.ops.sliding``
+    returns over the whole track.  The max filter of the track as given,
+    with the last ``size // 2`` outputs before L recomputed from the
+    ``2 * size`` samples before L (the caller zeroes the track past L;
+    outputs past L stay the filter over that padding).  A tensor L is
+    read back to the host once.  Needs L >= 4 * make_odd(window_size) - 2."""
     size = 2 * make_odd(window_size) - 1
     left = size // 2
     right = size - left - 1
+    if not isinstance(length, RowInts):
+        full = max_filter1d(array, size)
+        if right:
+            n = array.shape[-1]
+            length = int(length)
+            start = min(max(length - 2 * size, 0), n - 2 * size)
+            tail = max_filter1d(array[..., start : start + 2 * size], size)[..., -right:]
+            at = min(max(length - right, 0), n - right)
+            full[..., at : at + right] = tail
+        return full
     n = array.shape[-1]
     j = torch.arange(n + right, device=array.device)
-    lengths_col = lengths.device[:, None]
+    lengths_col = length.device[:, None]
     mirrored = torch.where(j < lengths_col, j, 2 * lengths_col - 1 - j).clamp(0, n - 1)
     extended = torch.gather(array, -1, mirrored)  # (B, n + right)
     head = torch.flip(array[..., :left], (-1,))
     out = _start_max(torch.cat([head, extended], dim=-1), size)
-    return out * lengths.mask(n, out.dtype)
+    return out * length.mask(n, out.dtype)
 
 
 def sliding_max_hold(array: torch.Tensor, window_size: int) -> torch.Tensor:

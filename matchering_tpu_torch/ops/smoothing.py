@@ -10,8 +10,9 @@ is linear too (``lowess.linear_operator``), and is folded in on the host:
 smooths a curve with two matmuls.  Any other LOWESS (``lowess_it > 0``,
 ``lowess_exact``, ``lowess_delta = 0``) runs between the two plain
 operators as ``lowess.smooth`` on the device.  Whether the smoother is
-folded is an explicit field of the operator state, ``Smoothing.lowess``,
-not read off the operators' shape.
+folded is an explicit field of the operator state, ``Smoothing.lowess``;
+only a bare (to_log, to_lin) pair, the JAX package's form, is read by its
+shape, as there.
 
 Boundary semantics kept: the smoothed curve's DC bin is zeroed and bin 1
 keeps its unsmoothed value (``match_frequencies.py:73-74``).
@@ -154,15 +155,65 @@ def operator_arrays_for_config(config, *, device=None) -> Tuple[torch.Tensor, to
     return staged.to_log, staged.to_lin
 
 
-def smooth_exponentially(matching_fft: torch.Tensor, operators: Smoothing) -> torch.Tensor:
-    """Smooth matching spectra (..., fft_size//2 + 1) on the log grid with
-    the smoothing state on their device: ``to_log``, the LOWESS where it is
-    not folded (``lowess.smooth``, in float64), then ``to_lin``; both
-    products contract the last axis, so a batch of curves is one product.
+def as_smoothing(operators, grid_points: int, lowess_params, dtype: torch.dtype, device) -> Smoothing:
+    """The smoothing state that ``operators`` stand for, on ``device`` in
+    ``dtype``: a :class:`Smoothing` is itself; a (to_log, to_lin) pair (the
+    JAX package's form, e.g. :func:`operator_arrays_for_config`) is put
+    there (no copy where it already is), with the LOWESS of
+    ``lowess_params = (frac, it, delta)`` staged beside it unless the pair
+    has it folded in.  As in the JAX package, a bare pair tells that by
+    its inner dimension: the folded one has fewer anchors than the
+    ``grid_points`` of the log grid."""
+    if isinstance(operators, Smoothing):
+        return operators
+    to_log, to_lin = (
+        torch.as_tensor(op if isinstance(op, torch.Tensor) else np.asarray(op), dtype=dtype, device=device)
+        for op in operators
+    )
+    plan = None
+    if to_log.shape[0] == grid_points:
+        frac, it, delta = lowess_params
+        plan = lowess.stage_plan(grid_points, float(frac), int(it), float(delta), to_log.device)
+    return Smoothing(to_log, to_lin, plan)
+
+
+def smooth_exponentially(
+    matching_fft: torch.Tensor,
+    sample_rate: int,
+    fft_size: int,
+    oversampling: int,
+    lowess_frac: float,
+    lowess_it: int,
+    lowess_delta: float,
+    operators=None,
+) -> torch.Tensor:
+    """Smooth matching spectra (..., fft_size//2 + 1) on the log grid on
+    their device: ``to_log``, the LOWESS where it is not folded
+    (``lowess.smooth``, in float64), then ``to_lin``; both products
+    contract the last axis, so a batch of curves is one product.
+
+    ``operators``: a :class:`Smoothing` (``state.operators_for_config``),
+    a (to_log, to_lin) pair (:func:`as_smoothing`), or None for the plain
+    interpolation operators of the grids, staged once per (grids, dtype,
+    device), with the LOWESS run between them, as the JAX package does
+    with none.
 
     The caller keeps float32 matmuls at full precision
     (``torch.backends.cuda.matmul.allow_tf32 = False``, set by
-    ``state.operators_for_config``): TF32 keeps about three decimal digits."""
+    ``state.staged_operators``): TF32 keeps about three decimal digits."""
+    if operators is None:
+        from ..state import staged_operators
+
+        operators = staged_operators(
+            (sample_rate, fft_size, oversampling), None, matching_fft.dtype, matching_fft.device
+        )[:2]
+    operators = as_smoothing(
+        operators,
+        (fft_size // 2) * oversampling + 1,
+        (lowess_frac, lowess_it, lowess_delta),
+        matching_fft.dtype,
+        matching_fft.device,
+    )
     on_log_grid = matching_fft @ operators.to_log.mT
     if operators.lowess is not None:
         on_log_grid = lowess.smooth(on_log_grid, plan=operators.lowess)

@@ -38,7 +38,7 @@ from .mesh import Mesh, require_pairs_axis
 
 
 def bucket_pad(
-    tracks: Sequence, multiple: int = 1 << 18, device=None
+    tracks: Sequence, multiple: int = 1 << 18, *, device=None
 ) -> Tuple[torch.Tensor, List[int]]:
     """Zero-pad (n_i, 2) tracks (host arrays or tensors) to one shared
     length, the longest rounded up to ``multiple``, as one (B, n_pad, 2)
@@ -113,7 +113,6 @@ def master_batch(
         targets,
         references,
         config,
-        operators_for_config(config, device),
         need_default=need_default,
         need_no_limiter=need_no_limiter,
         need_no_limiter_normalized=need_no_limiter_normalized,
@@ -201,10 +200,11 @@ def master_pairs(
         ))
     return [
         master_graph(
-            t, r, config, ops,
+            t, r, config,
             need_default=need_default,
             need_no_limiter=need_no_limiter,
             need_no_limiter_normalized=need_no_limiter_normalized,
+            interp_ops=ops,
             target_length=tl,
             reference_length=rl,
         )

@@ -59,6 +59,7 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     timeout_s: float = DEFAULT_TIMEOUT_S,
+    **kwargs,
 ) -> None:
     """Join the process group (idempotent), on the ``gloo`` backend.
 
@@ -68,14 +69,17 @@ def initialize(
     set, the group comes up from those (``init_method="env://"``).  With
     nothing given this is a no-op: one process.  ``timeout_s`` bounds the
     rendezvous and every collective, so a peer that died cannot hold the
-    others for longer."""
+    others for longer.  ``kwargs`` go to
+    ``torch.distributed.init_process_group`` as they are (where the JAX
+    package hands them to ``jax.distributed.initialize``); a key named
+    there (``backend``, ``timeout``, ...) replaces the one set here."""
     if dist.is_initialized():
         return
     timeout = timedelta(seconds=timeout_s)
     coordinator_address = coordinator_address or os.environ.get(_COORD_ENV)
     if coordinator_address is None and num_processes is None:
         if all(name in os.environ for name in _TORCHRUN_ENV):
-            dist.init_process_group("gloo", init_method="env://", timeout=timeout)
+            dist.init_process_group(**{"backend": "gloo", "init_method": "env://", "timeout": timeout, **kwargs})
         return
     if coordinator_address is None:
         coordinator_address = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
@@ -84,9 +88,10 @@ def initialize(
     if process_id is None:
         process_id = int(os.environ["RANK"])
     init_method = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
-    dist.init_process_group(
-        "gloo", init_method=init_method, world_size=num_processes, rank=process_id, timeout=timeout,
-    )
+    dist.init_process_group(**{
+        "backend": "gloo", "init_method": init_method, "world_size": num_processes,
+        "rank": process_id, "timeout": timeout, **kwargs,
+    })
 
 
 def shutdown() -> None:
@@ -475,6 +480,7 @@ def run_selftest(
     encode: int = 0,
     report_path: Optional[str] = None,
     timeout: float = DEFAULT_TIMEOUT_S,
+    *,
     device: str = "cuda",
 ) -> None:
     """Spawn ``num_processes`` workers and verify that the distributed farm

@@ -180,11 +180,12 @@ def _per_device(value, grid: TimeGrid) -> List[torch.Tensor]:
 # Overlap-save convolution
 
 
-def convolve_same_sharded(parts: Sharded, firs, grid: TimeGrid) -> Sharded:
+def convolve_same_sharded(parts: Sharded, h, grid: TimeGrid) -> Sharded:
     """Sharded ``fftconvolve(x, h, "same")`` of (R, block) shards with one
-    (taps,) FIR, or of (R, block, C) shards with C FIRs (C, taps), one
-    convolution call per device (reference ``match_frequencies.py:112-113``)."""
-    firs = _per_device(firs, grid)
+    (taps,) FIR ``h``, or of (R, block, C) shards with C FIRs (C, taps),
+    one convolution call per device (reference
+    ``match_frequencies.py:112-113``)."""
+    firs = _per_device(h, grid)
     taps = firs[0].shape[-1]
     start = (taps - 1) // 2
     left = taps - 1 - start
@@ -532,7 +533,7 @@ def masked_average_spectrum_sharded_dynamic(
 
 
 def masked_average_spectrum_sharded(
-    parts: Sharded, masks, piece_size: int, divisions: int, fft_size: int, grid: TimeGrid
+    parts: Sharded, mask, piece_size: int, divisions: int, fft_size: int, grid: TimeGrid
 ) -> List[torch.Tensor]:
     """Mask-weighted average |rFFT|/fft_size over the analysis frames of
     the whole track (reference ``match_frequencies.py:30-42``): frames of
@@ -546,7 +547,7 @@ def masked_average_spectrum_sharded(
     block = parts[0].shape[1]
     local_frames = block // fft_size + 2
     partial = []
-    for g, (x, halo, mask) in enumerate(zip(parts, grid.halo_right(parts, fft_size), masks)):
+    for g, (x, halo, m) in enumerate(zip(parts, grid.halo_right(parts, fft_size), mask)):
         lo = grid.index[g] * block
         p_lo = torch.clamp(lo // max(piece_size, 1), 0, divisions - 1)
         k_lo = torch.clamp(-((p_lo * piece_size - lo) // fft_size), 0, frames_per_piece)
@@ -558,11 +559,11 @@ def masked_average_spectrum_sharded(
         windows = torch.cat([x, halo], dim=1).unfold(1, fft_size, 1)
         frames = windows[torch.arange(x.shape[0], device=x.device)[:, None], offsets]
         magnitude = torch.abs(torch.fft.rfft(frames, dim=-1)) / fft_size
-        weights = mask[p] * owned.to(x.dtype) * float(frames_per_piece > 0)
+        weights = m[p] * owned.to(x.dtype) * float(frames_per_piece > 0)
         partial.append(torch.einsum("rfk,rf->rk", magnitude, weights))
     return [
-        total / (torch.clamp(torch.sum(mask), min=1.0) * fpp)
-        for total, mask in zip(grid.psum(partial), masks)
+        total / (torch.clamp(torch.sum(m), min=1.0) * fpp)
+        for total, m in zip(grid.psum(partial), mask)
     ]
 
 

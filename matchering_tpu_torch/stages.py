@@ -128,7 +128,14 @@ def _fir_from_spectra(
     smoothing (the folded operators, or the plain ones around the device
     LOWESS), linear-phase FIR synthesis."""
     matching_fft = reference_fft / torch.clamp(target_fft, min=config.min_value)
-    smoothed = smoothing.smooth_exponentially(matching_fft, operators)
+    smoothed = smoothing.smooth_exponentially(
+        matching_fft,
+        config.internal_sample_rate,
+        config.fft_size,
+        config.lin_log_oversampling,
+        *smoothing.lowess_parameters(config),
+        operators=operators,
+    )
     return fir.fir_from_magnitude(smoothed, config.fft_size)
 
 
@@ -136,10 +143,10 @@ def master_graph(
     target: torch.Tensor,
     reference: torch.Tensor,
     config: Config,
-    operators: smoothing.Smoothing,
     need_default: bool = True,
     need_no_limiter: bool = False,
     need_no_limiter_normalized: bool = False,
+    interp_ops=None,
     target_length: Optional[RowInts] = None,
     reference_length: Optional[RowInts] = None,
 ) -> MasterOutput:
@@ -147,10 +154,14 @@ def master_graph(
 
     target/reference: (n, 2) stereo, or (B, n, 2) and (B, m, 2) batches,
     at ``config.internal_sample_rate``, float or raw int16/int32 PCM
-    (converted on the device).  ``operators``: the smoothing state of
-    ``config`` on that device (``state.operators_for_config``): the two
-    operators in the working dtype, and the staged LOWESS plan where it
-    does not fold into them.  With ``lowess_it > 0`` the robustness
+    (converted on the device).  ``interp_ops``: the smoothing state of
+    ``config`` on that device.  None builds it there through the staged
+    cache (``state.operators_for_config``: the two operators in the
+    working dtype, and the LOWESS plan where it does not fold into them);
+    a ``smoothing.Smoothing`` is used as it is; a (to_log, to_lin) pair,
+    as ``smoothing.operator_arrays_for_config`` gives it, gets the staged
+    LOWESS plan of ``config`` beside it where it is not folded
+    (``smoothing.as_smoothing``).  With ``lowess_it > 0`` the robustness
     iterations run here too, still with no host sync (the median comes
     from a device sort).
 
@@ -167,6 +178,16 @@ def master_graph(
     if single:
         target, reference = target[None], reference[None]
     dtype = config.torch_dtype
+    if interp_ops is None:
+        operators = operators_for_config(config, target.device)
+    else:
+        operators = smoothing.as_smoothing(
+            interp_ops,
+            config.log_grid_size,
+            smoothing.lowess_parameters(config),
+            dtype,
+            target.device,
+        )
     target = basics.to_working_float(target, dtype)
     reference = basics.to_working_float(reference, dtype)
     report: Dict[str, torch.Tensor] = {}
@@ -292,9 +313,10 @@ def master(
     need_default: bool = True,
     need_no_limiter: bool = False,
     need_no_limiter_normalized: bool = False,
-    device=None,
     target_length: Optional[int] = None,
     reference_length: Optional[int] = None,
+    *,
+    device=None,
 ) -> MasterOutput:
     """:func:`master_graph` of one pair on ``device`` (``cuda`` unless
     named; no CPU fallback), with the smoothing state built on the host
@@ -317,7 +339,6 @@ def master(
         to_device(target, device),
         to_device(reference, device),
         config,
-        operators_for_config(config, device),
         need_default=need_default,
         need_no_limiter=need_no_limiter,
         need_no_limiter_normalized=need_no_limiter_normalized,
@@ -333,6 +354,7 @@ def main(
     need_default: bool = True,
     need_no_limiter: bool = False,
     need_no_limiter_normalized: bool = False,
+    *,
     device=None,
 ):
     """Reference-compatible stage runner (``matchering/stages.py:210-272``):

@@ -58,17 +58,6 @@ def _stage(to_log, to_lin, device, dtype: torch.dtype, lowess_params) -> smoothi
     )
 
 
-def operators_from_numpy(
-    to_log: np.ndarray, to_lin: np.ndarray, device, dtype: torch.dtype, config: Config
-) -> smoothing.Smoothing:
-    """The smoothing state for ``stages.master_graph`` from the (to_log,
-    to_lin) operator pair of ``config``, e.g. the JAX package's
-    ``operator_arrays_for_config(config)``, for any config: where its LOWESS
-    does not fold (``smoothing.lowess_folds``), the pair is the plain
-    interpolation and the LOWESS plan is staged beside it."""
-    return _stage(to_log, to_lin, device, dtype, smoothing.lowess_parameters(config))
-
-
 # the staged smoothing states, oldest first
 _STAGED: Dict[tuple, smoothing.Smoothing] = {}
 _STAGED_MAX = 4
@@ -86,6 +75,9 @@ def staged_operators(rates, lowess_params, dtype: torch.dtype, device) -> smooth
     # this is PyTorch's default, set here so the run does not depend on it
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        # "cuda" and the tensors' "cuda:0" are one entry
+        device = torch.device("cuda", torch.cuda.current_device())
     key = (*rates, lowess_params, dtype, device)
     if key not in _STAGED:
         if len(_STAGED) >= _STAGED_MAX:

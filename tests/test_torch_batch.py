@@ -32,7 +32,7 @@ from matchering_tpu.stages import main as jmain
 from matchering_tpu_torch import state, stages
 from matchering_tpu_torch.kernels import envelope, scan
 from matchering_tpu_torch.limiter import limit
-from matchering_tpu_torch.ops import basics, iir, spectrum
+from matchering_tpu_torch.ops import basics, iir, sliding, spectrum
 from matchering_tpu_torch.parallel import batch
 from matchering_tpu_torch.parallel.mesh import single_axis_mesh
 from matchering_tpu_torch.utils import RowInts, make_odd
@@ -107,6 +107,19 @@ class TestTwinsWithLengths:
                 jslided = jax_sliding_truncated(jnp.asarray(jgain), ATTACK, jnp.int32(L))
                 np.testing.assert_array_equal(slided[r, :L].numpy(), np.asarray(jslided)[:L])
             assert not gain[r, L:].any() and not slided[r, L:].any()
+
+    @pytest.mark.parametrize("as_tensor", [False, True], ids=["int", "0-d tensor"])
+    @pytest.mark.parametrize("length", [4 * make_odd(ATTACK) - 2, 5003, 9000], ids=["jax-min", "odd", "n"])
+    def test_sliding_max_attack_truncated_takes_the_jax_call_form(self, rng, length, as_tensor):
+        """``sliding_max_attack_truncated(array, window_size, length)`` on
+        one track with a scalar length returns what JAX returns over the
+        whole track, past the length too (the max filter over the zeros)."""
+        n = 9000
+        x = np.abs(rng.randn(n)) * 2.0
+        x[length:] = 0.0
+        got = sliding.sliding_max_attack_truncated(t(x), ATTACK, torch.tensor(length) if as_tensor else length)
+        want = jax_sliding_truncated(jnp.asarray(x), ATTACK, jnp.int32(length))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     @pytest.mark.parametrize("pole", sorted(FILTERS))
     def test_filtfilt_rows(self, rng, pole):
@@ -256,6 +269,23 @@ def test_master_batch_matches_jax(padded, jax_batch, port_batch, snr, variant):
         assert not got[L:].any(), r
 
 
+def test_master_takes_the_jax_call_form(padded, jax_batch, snr):
+    """``master(target, reference, config, need_default, need_no_limiter,
+    need_no_limiter_normalized, target_length, reference_length)``, JAX's
+    positional form (``device`` keyword-only): row 0 of the padded batch
+    at its true lengths against JAX ``master_batch``'s row 0 (the master
+    of the unpadded pair), >= 200 dB."""
+    t_batch, r_batch, t_lens, r_lens = padded
+    config = state.config_from_dict(dataclasses.asdict(jax_batch[0]))
+    out = mt.master(t_batch[0], r_batch[0], config, True, True, True, t_lens[0], r_lens[0], device="cpu")
+    length = t_lens[0]
+    for variant in VARIANTS:
+        got, want = getattr(out, variant).numpy(), jax_batch[1][variant][0]
+        measured = snr(want[:length], got[:length])
+        assert measured >= 200.0, (variant, measured)
+        assert not got[length:].any(), variant
+
+
 def test_master_batch_checks_lengths_on_the_host(padded):
     t_batch, r_batch, t_lens, r_lens = padded
     with pytest.raises(ValueError, match="outside"):
@@ -294,6 +324,18 @@ def test_stages_main_length_bucketing(bucketed_pair, snr, against):
     for g, w in zip(got, want):
         assert g.shape == (target.shape[0], 2)
         assert snr(np.asarray(w), g.numpy()) > gate
+
+
+def test_stages_main_takes_the_jax_call_form(bucketed_pair, snr):
+    """``main(target, reference, config, need_default, need_no_limiter,
+    need_no_limiter_normalized)`` positionally, as JAX's, ``device``
+    keyword-only: the bucketed JAX result to 200 dB."""
+    target, reference = bucketed_pair
+    bucketed = dict(dtype="float64", length_bucketing=1 << 17)
+    got = stages.main(target, reference, mt.Config(**bucketed), True, True, True, device="cpu")
+    want = jmain(target, reference, mj.Config(**bucketed), **ALL)
+    for g, w in zip(got, want):
+        assert snr(np.asarray(w), g.numpy()) >= 200.0
 
 
 def test_bucket_pad_matches_jax_and_refuses_mixed_dtypes(rng):

@@ -437,15 +437,39 @@ def test_smoothing_state_names_its_lowess(kwargs):
         assert (anchors == config.log_grid_size) is exact
 
 
+@pytest.mark.parametrize("operators", ["none", "jax-pair"])
+@pytest.mark.parametrize("kwargs", [{}, {"lowess_it": 1}], ids=["folded", "lowess_it=1"])
+def test_smooth_exponentially_takes_the_jax_call_form(rng, kwargs, operators):
+    """``smooth_exponentially(matching_fft, sample_rate, fft_size,
+    oversampling, lowess_frac, lowess_it, lowess_delta, operators=None)``
+    on one curve, with no operators (the plain ones, the LOWESS between
+    them, as JAX does) or the JAX package's pair (folded or plain, told
+    apart by its shape): JAX's output within 1e-12 relative."""
+    jconfig = mj.Config(dtype="float64", fft_size=SMALL_FFT, **kwargs)
+    curve = np.abs(rng.randn(SMALL_FFT // 2 + 1)) + 0.2
+    args = (jconfig.internal_sample_rate, jconfig.fft_size, jconfig.lin_log_oversampling,
+            jconfig.lowess_frac, jconfig.lowess_it, jconfig.lowess_delta)
+    jops = None if operators == "none" else jsm.operator_arrays_for_config(jconfig)
+    want = np.asarray(jsm.smooth_exponentially(jnp.asarray(curve), *args, operators=jops))
+    ops = None if jops is None else tuple(np.asarray(op) for op in jops)
+    got = smoothing.smooth_exponentially(t(curve), *args, operators=ops).numpy()
+    assert got.shape == want.shape
+    assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+
+
 @pytest.mark.parametrize("kwargs", LOWESS_CONFIGS)
 def test_smooth_exponentially_matches_jax(rng, kwargs):
     jconfig = mj.Config(dtype="float64", fft_size=SMALL_FFT, **kwargs)
     config = state.config_from_dict(dataclasses.asdict(jconfig))
     curves = np.abs(rng.randn(2, config.fft_size // 2 + 1)) + 0.2
     ops64 = jsm.operator_arrays_for_config(jconfig)
-    ops = state.operators_from_numpy(*ops64, device="cpu", dtype=torch.float64, config=config)
+    ops = smoothing.as_smoothing(ops64, config.log_grid_size, smoothing.lowess_parameters(config),
+                                 torch.float64, "cpu")
     assert ops.lowess is not None
-    got = smoothing.smooth_exponentially(t(curves), ops).numpy()
+    got = smoothing.smooth_exponentially(
+        t(curves), config.internal_sample_rate, config.fft_size, config.lin_log_oversampling,
+        *smoothing.lowess_parameters(config), operators=ops,
+    ).numpy()
     for row, curve in zip(got, curves):
         want = jsm.smooth_exponentially(
             jnp.asarray(curve), jconfig.internal_sample_rate, jconfig.fft_size,

@@ -26,6 +26,7 @@ import torch
 from scipy import signal
 
 import matchering_tpu as mj
+from matchering_tpu.ops import smoothing as jsm
 import matchering_tpu_torch as mt
 from matchering_tpu_torch import stages, state
 from matchering_tpu_torch.io import wav
@@ -90,6 +91,21 @@ def test_master_float32_above_jax_gate(pair, jax_master, snr):
         assert getattr(out, variant).dtype == torch.float32
         measured = snr(want[variant], getattr(out, variant).numpy())
         assert measured > 95.0, (variant, measured)
+
+
+def test_master_graph_takes_the_jax_pair_of_an_unfolded_lowess(pair, jax_master, snr):
+    """``master_graph(target, reference, config, need_default,
+    need_no_limiter, need_no_limiter_normalized, interp_ops)`` with the
+    JAX package's ``operator_arrays_for_config`` pair of a LOWESS that does
+    not fold: the plain operators, the staged LOWESS plan of ``config``
+    beside them; JAX's master >= 200 dB."""
+    _, jconfig, want = jax_master
+    interp_ops = tuple(np.asarray(op) for op in jsm.operator_arrays_for_config(jconfig))
+    config = state.config_from_dict(dataclasses.asdict(jconfig))
+    out = stages.master_graph(t(pair[0]), t(pair[1]), config, True, True, True, interp_ops)
+    for variant in VARIANTS:
+        measured = snr(want[variant], getattr(out, variant).numpy())
+        assert measured >= 200.0, (variant, measured)
 
 
 @pytest.fixture(scope="module")

@@ -127,6 +127,34 @@ def test_initialize_from_torchrun_environment(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+def test_initialize_takes_the_jax_call_form(monkeypatch):
+    """``initialize(coordinator_address, num_processes, process_id,
+    **kwargs)``: the JAX package hands ``kwargs`` to
+    ``jax.distributed.initialize``, the port to
+    ``torch.distributed.init_process_group``, where a key the port sets
+    itself (``timeout``) is replaced."""
+    import datetime
+
+    import jax
+
+    from matchering_tpu.parallel import launch as jlaunch
+
+    calls = []
+    monkeypatch.setattr(jax.distributed, "is_initialized", lambda: False)
+    monkeypatch.setattr(jax.distributed, "initialize", lambda **kw: calls.append(kw))
+    monkeypatch.setattr(torch.distributed, "init_process_group", lambda **kw: calls.append(kw))
+    timeout = datetime.timedelta(seconds=5)
+    jlaunch.initialize("localhost:8476", 2, 1, group_name="farm")
+    launch.initialize("localhost:8476", 2, 1, group_name="farm")
+    launch.initialize("localhost:8476", 2, 1, timeout=timeout)
+    assert calls[0] == dict(coordinator_address="localhost:8476", num_processes=2, process_id=1, group_name="farm")
+    assert calls[1]["group_name"] == calls[0]["group_name"]
+    assert calls[1]["backend"] == "gloo" and calls[1]["timeout"] == datetime.timedelta(seconds=launch.DEFAULT_TIMEOUT_S)
+    for port in calls[1:]:
+        assert (port["init_method"], port["world_size"], port["rank"]) == ("tcp://localhost:8476", 2, 1)
+    assert calls[2]["timeout"] == timeout
+
+
 def test_selftest_without_device_asks_for_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -129,6 +129,18 @@ class TestFir:
             jf.fir_from_magnitude(jnp.asarray(curve), fft_size),
         )
 
+    @pytest.mark.parametrize("dtype", ["float64", "float32"])
+    def test_hann_symmetric_takes_the_jax_call_form(self, monkeypatch, dtype):
+        """``hann_symmetric(n, dtype)`` as the JAX package calls it: a
+        numpy dtype name, and the device keyword-only; with none it runs
+        on the card, never on the CPU, and raises without one."""
+        got = fir.hann_symmetric(4096, dtype, device="cpu")
+        assert got.dtype == getattr(torch, dtype)
+        assert_close(got, jf.hann_symmetric(4096, jnp.dtype(dtype)), rtol=1e-12 if dtype == "float64" else 1e-6)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fir.hann_symmetric(4096, np.float64)
+
 
 class TestSmoothing:
     def test_host_operators_equal_jax_operators(self):
@@ -151,9 +163,15 @@ class TestSmoothing:
             config.lowess_delta, operators=ops64,
         )
         port_config = state.config_from_dict(dataclasses.asdict(config))
-        ops = state.operators_from_numpy(*ops64, device="cpu", dtype=torch.float64, config=port_config)
+        ops = smoothing.as_smoothing(ops64, port_config.log_grid_size,
+                                     smoothing.lowess_parameters(port_config), torch.float64, "cpu")
         assert ops.lowess is None
-        assert_close(smoothing.smooth_exponentially(t(curve), ops), want)
+        got = smoothing.smooth_exponentially(
+            t(curve), port_config.internal_sample_rate, port_config.fft_size,
+            port_config.lin_log_oversampling, port_config.lowess_frac, port_config.lowess_it,
+            port_config.lowess_delta, operators=ops,
+        )
+        assert_close(got, want)
 
     @pytest.mark.parametrize("kwargs", [{"lowess_it": 1}, {"lowess_exact": True}])
     def test_unfolded_smoothers_keep_the_plain_operators(self, kwargs):
@@ -182,6 +200,16 @@ class TestConvolve:
             convolve.fft_convolve_same_batch(t(signals), t(firs)),
             jc.fft_convolve_same_batch(jnp.asarray(signals), jnp.asarray(firs)),
         )
+
+    @pytest.mark.parametrize("n,taps", [(3000, 257), (200_000, 4096)], ids=["single", "blocked"])
+    def test_block_fft_none_picks_the_block(self, rng, n, taps):
+        """``block_fft=None``, JAX's default, picks the port's block."""
+        signals = rng.randn(2, n)
+        firs = rng.randn(2, taps) * np.hanning(taps)
+        got = convolve.fft_convolve_same_batch(t(signals), t(firs), block_fft=None)
+        assert_close(got, jc.fft_convolve_same_batch(jnp.asarray(signals), jnp.asarray(firs), block_fft=None),
+                     rtol=1e-12)
+        assert torch.equal(got, convolve.fft_convolve_same_batch(t(signals), t(firs), 1 << 16))
 
     def test_blocked_branch_of_one_channel(self, rng):
         x = rng.randn(40_000)

@@ -22,7 +22,9 @@ import torch
 import matchering_tpu as mj
 import matchering_tpu_torch as mt
 from matchering_tpu.io import wav as jwav
+from matchering_tpu.ops import smoothing as jsm
 from matchering_tpu_torch import state
+from matchering_tpu_torch.ops import smoothing
 
 SR = 44100
 VARIANTS = ("result", "result_no_limiter", "result_no_limiter_normalized")
@@ -75,6 +77,134 @@ def test_master_float32_above_jax_gate(jax_f64, port_f32, snr, variant):
     assert port_f32[variant].dtype == torch.float32
     measured = snr(jax_f64[1][variant], port_f32[variant].numpy())
     assert measured > 95.0, measured
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the calls of many small ops below: the
+    test workers' pools of every core spin against each other (a
+    ``dryrun_multichip(8)`` took ~1 s on one thread and ~67 s on eight
+    with six such processes at once)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _interp_ops(form, config, jax_config):
+    """The smoothing state of ``config`` in one of master_graph's forms."""
+    if form == "none":
+        return None
+    if form == "jax-pair":
+        return tuple(np.asarray(op) for op in jsm.operator_arrays_for_config(jax_config))
+    if form == "port-pair":
+        return smoothing.operator_arrays_for_config(config, device="cpu")
+    return state.operators_for_config(config, "cpu")
+
+
+@pytest.mark.parametrize("form", ["none", "jax-pair", "port-pair", "smoothing"])
+def test_master_graph_takes_the_jax_call_form(pair, jax_f64, snr, form, one_thread):
+    """``master_graph(target, reference, config, need_default,
+    need_no_limiter, need_no_limiter_normalized, interp_ops)``, JAX's
+    positional form, with ``interp_ops`` None, the JAX package's pair, the
+    port's pair or its ``Smoothing``: JAX's master >= 200 dB."""
+    config = state.config_from_dict(dataclasses.asdict(jax_f64[0]))
+    interp_ops = _interp_ops(form, config, jax_f64[0])
+    out = mt.master_graph(torch.from_numpy(pair[0]), torch.from_numpy(pair[1]), config, True, True, True, interp_ops)
+    for variant in VARIANTS:
+        measured = snr(jax_f64[1][variant], getattr(out, variant).numpy())
+        assert measured >= 200.0, (variant, measured)
+
+
+def test_bench_graph_body_runs_on_the_port(one_thread):
+    """``bench.py``'s graph body with only the import swapped, on a 10 s
+    ``bench.make_pair``: the staged pair of ``operator_arrays_for_config``
+    gives the result of ``interp_ops=None`` bit for bit."""
+    import bench
+
+    config = mt.Config()
+    interp_ops = smoothing.operator_arrays_for_config(config, device="cpu")
+
+    def graph(target, reference, ops, s):
+        out = mt.master_graph(
+            target * (1.0 + 1e-7 * s), reference, config,
+            need_default=True, interp_ops=ops,
+        )
+        return out.result
+
+    target, reference = (torch.from_numpy(x) for x in bench.make_pair(10, SR, 42))
+    s = torch.tensor(1.0)
+    got = graph(target, reference, interp_ops, s)
+    assert got.shape == target.shape and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, graph(target, reference, None, s))
+    assert float(torch.sum(torch.abs(got))) > 0
+
+
+# --- graft_entry_torch: the driver entry points on the port ---
+
+
+def test_tiny_pair_is_the_jax_drivers():
+    import __graft_entry__
+    import graft_entry_torch
+
+    for kwargs in ({}, dict(seconds_t=2.0, seconds_r=1.1)):
+        for got, want in zip(graft_entry_torch._tiny_pair(**kwargs), __graft_entry__._tiny_pair(**kwargs)):
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def jax_tiny():
+    """JAX's float64 master of the driver's pair."""
+    import graft_entry_torch
+
+    target, reference = graft_entry_torch._tiny_pair()
+    out = mj.master(jnp.asarray(target), jnp.asarray(reference), mj.Config(dtype="float64"))
+    return np.asarray(out.result)
+
+
+def test_entry_forward_matches_jax(jax_tiny, snr, one_thread):
+    """``entry(device="cpu")``: the forward step on its example tensors
+    (float32) above the JAX package's float32 gate of 95 dB, and
+    ``master_graph`` in float64 on the same pair >= 200 dB."""
+    import graft_entry_torch
+
+    forward, (target, reference) = graft_entry_torch.entry(device="cpu")
+    assert target.device.type == "cpu" and target.dtype == torch.float32
+    got = forward(target, reference)
+    assert got.shape == target.shape and got.dtype == torch.float32
+    measured = snr(jax_tiny, got.numpy())
+    assert measured > 95.0, measured
+    got64 = mt.master_graph(target, reference, mt.Config(dtype="float64"), need_default=True).result
+    measured = snr(jax_tiny, got64.numpy())
+    assert measured >= 200.0, measured
+
+
+@pytest.mark.parametrize("n_devices", [1, 2, 4, 8])
+def test_dryrun_multichip_on_the_cpu(n_devices, one_thread):
+    import graft_entry_torch
+
+    graft_entry_torch.dryrun_multichip(n_devices, device="cpu")
+
+
+def test_entry_points_without_a_card_raise(monkeypatch):
+    import graft_entry_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry_torch.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry_torch.dryrun_multichip(2)
+
+
+def test_graft_entry_imports_no_jax():
+    code = (
+        "import sys, graft_entry_torch, matchering_tpu_torch.parallel.timeshard; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'matchering_tpu')]; "
+        "assert not bad, bad"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=repo, timeout=120)
 
 
 def test_limit_matches_jax(rng):

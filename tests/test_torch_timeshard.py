@@ -166,6 +166,23 @@ def _ops(rng):
                 x_rms, out=P(),
             ),
         ),
+        # JAX's keywords (mask=, piece_size=, ...) with the sharded form's parts and grid
+        "spectrum_keywords": (
+            lambda: timeshard.masked_average_spectrum_sharded(
+                shards(x_rms), mask=[torch.from_numpy(mask)], piece_size=spectrum_args[0],
+                divisions=spectrum_args[1], fft_size=spectrum_args[2], grid=GRID,
+            )[0].numpy(),
+            lambda: spectrum.masked_average_spectrum_flat_pair(
+                torch.from_numpy(x_rms), torch.from_numpy(x_rms), torch.from_numpy(mask), *spectrum_args
+            )[0].numpy(),
+            lambda m: jax_sharded(
+                m, lambda x: jts.masked_average_spectrum_sharded(
+                    x, mask=jnp.asarray(mask), piece_size=spectrum_args[0], divisions=spectrum_args[1],
+                    fft_size=spectrum_args[2], axis="time",
+                ),
+                x_rms, out=P(),
+            ),
+        ),
         "global_peak": (
             lambda: timeshard.global_peak(shards(stereo), GRID)[0].numpy(),
             lambda: np.abs(stereo).max(),
