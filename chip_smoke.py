@@ -145,10 +145,25 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    with ``ops`` from ``operator_arrays_for_config``, bit for bit the
    result of ``interp_ops=None``; each call warm, CUDA-synchronised,
    with its wall time, and no call of a kernel's plain twin allowed;
-14. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+14. the measurement drivers in this process, on the card, no call of a
+   kernel's plain twin allowed: ``bench_torch.py`` at its defaults (16
+   pairs of 180 s built on host threads and staged once, 3 timed reps of
+   the pipelined round, the per-pair-fetch round and the single pair;
+   launches (16, 64, 0) per round and (131, 524, 0) per run), bench's
+   graph on pair 0 at s = 1 bit for bit phase 13's checksum, one round
+   enqueued under ``torch.cuda.set_sync_debug_mode("error")`` (a host
+   sync is recorded, with the line that made it, not failed) and the
+   device's busy share of one profiled round; then
+   ``tools_record_bench_torch.py``'s ``bench_single``, ``bench_stages``
+   and ``bench_batch_sweep`` on bench's seed-42 pair, (1, 4, 0) launches
+   per graph, per ``limit()`` and per ``master_batch`` call, and, where
+   the host has the memory its docstring names, ``bench_longform`` (the
+   int16 and float32 masters bit-identical);
+15. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
    kernel's batched numbers from phases 3, 7 and 8, its launches in one
    sharded ``limit()`` (phase 9), per process of phase 10's full-width
-   run, per call of phase 13 and, for K2, per public scan of phase 12,
+   run, per call of phase 13, per round, run and call of phase 14 and,
+   for K2, per public scan of phase 12,
    and each launch's registers, shared
    memory and resident blocks per SM from the kernels' info queries,
    beside the grid its wrapper recorded for the timed launches), then,
@@ -158,6 +173,7 @@ Any failed phase ends the run with a non-zero exit code and no device line.
 It imports nothing of JAX or ``matchering_tpu``.
 """
 
+import contextlib
 import ctypes
 import json
 import os
@@ -230,6 +246,46 @@ def launch_numbers(query: str, *args, grid: int) -> dict:
     keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "resident_blocks_per_sm",
             "threads_per_block", "local_bytes")
     return {**dict(zip(keys, (int(v) for v in out))), "grid": grid}
+
+
+def launch_counts():
+    """The kernels' (K1, K2, K3) launch counters."""
+    from matchering_tpu_torch.kernels import envelope, scan, sos
+
+    return envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES
+
+
+def zero_launches() -> None:
+    from matchering_tpu_torch.kernels import envelope, scan, sos
+
+    envelope.LAUNCHES = scan.LAUNCHES = sos.LAUNCHES = 0
+
+
+@contextlib.contextmanager
+def plain_twins_forbidden(label):
+    """Records every call of a kernel's plain twin inside the block; any
+    such call fails the phase when the block ends."""
+    from matchering_tpu_torch.kernels import envelope, scan, sos
+
+    twins = [(envelope, "limiter_front_end_plain"), (scan, "first_order_filter_plain"), (sos, "sos_filter_plain")]
+    real = [getattr(module, name) for module, name in twins]
+    calls = []
+
+    def spy(name, function):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return function(*args, **kwargs)
+
+        return call
+
+    for (module, name), function in zip(twins, real):
+        setattr(module, name, spy(name, function))
+    try:
+        yield
+    finally:
+        for (module, name), function in zip(twins, real):
+            setattr(module, name, function)
+    require(not calls, f"{label} ran the plain twins {sorted(set(calls))} on the card")
 
 
 def make_pair(seconds: int, sr: int, seed: int):
@@ -1690,18 +1746,7 @@ def entry_path(mt, torch, device):
     call; fails on any mismatch, and on any call of a kernel's plain
     twin."""
     import graft_entry_torch
-    from matchering_tpu_torch.kernels import envelope, scan, sos
     from matchering_tpu_torch.ops import smoothing
-
-    twins = [(envelope, "limiter_front_end_plain"), (scan, "first_order_filter_plain"), (sos, "sos_filter_plain")]
-    twin_calls = []
-
-    def spy(name, real):
-        def call(*args, **kwargs):
-            twin_calls.append(name)
-            return real(*args, **kwargs)
-
-        return call
 
     def counted(label, fn):
         """``fn()`` once, warm (it ran once before, uncounted), CUDA
@@ -1709,21 +1754,13 @@ def entry_path(mt, torch, device):
         time; a call of a plain twin fails the phase."""
         fn()
         torch.cuda.synchronize()
-        envelope.LAUNCHES = scan.LAUNCHES = sos.LAUNCHES = 0
-        twin_calls.clear()
-        real = [getattr(module, name) for module, name in twins]
-        for (module, name), function in zip(twins, real):
-            setattr(module, name, spy(name, function))
-        try:
+        zero_launches()
+        with plain_twins_forbidden(label):
             start = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
-        finally:
-            for (module, name), function in zip(twins, real):
-                setattr(module, name, function)
-        launches = (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
-        require(not twin_calls, f"{label} ran the plain twins {sorted(set(twin_calls))} on the card")
+        launches = launch_counts()
         require(launches[0] >= 1 and launches[1] >= 1, f"{label} launched K1, K2 and K3 {launches} times")
         print(f"entry path {label}: {wall:.4f} s warm, (K1, K2, K3) launches {launches}", flush=True)
         return out, {"wall_s": wall, "k1": launches[0], "k2": launches[1], "k3": launches[2]}
@@ -1775,7 +1812,153 @@ def entry_path(mt, torch, device):
     return numbers
 
 
+def host_available_bytes() -> int:
+    """The host memory the kernel reports as available (0 where unknown)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def drivers_path(mt, torch, device, bench_checksum):
+    """Phase 14: the measurement drivers ``bench_torch.py`` and
+    ``tools_record_bench_torch.py`` in this process, on the card (see the
+    module's docstring).  ``bench_checksum``: phase 13's checksum of
+    bench's graph on its first pair.  Returns the phase's numbers, with
+    the (K1, K2, K3) launches of each run; fails on any mismatch, and on
+    any call of a kernel's plain twin."""
+    import traceback
+
+    import bench_torch
+    import tools_record_bench_torch as record
+
+    per_graph = expected_launches(mt.Config())  # one graph, one limit(), one master_batch call
+
+    def times(count):
+        return tuple(count * k for k in per_graph)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(device) / 1e9
+
+    numbers = {}
+    phase_start = time.perf_counter()
+    with plain_twins_forbidden("phase 14"):
+        # bench_torch at its defaults: 16 pairs of 180 s, staged once
+        start = time.perf_counter()
+        host_pairs = bench_torch.make_pairs(bench_torch.B, bench_torch.SECONDS)
+        build_s = time.perf_counter() - start
+        start = time.perf_counter()
+        driver = bench_torch.Bench(host_pairs, bench_torch.SECONDS, device=device)
+        staging_s = time.perf_counter() - start
+        zero_launches()
+        throughput, rows = bench_torch.measure(driver, bench_torch.REPS)
+        run_launches = launch_counts()
+        graphs = (2 + 2 * bench_torch.REPS) * bench_torch.B + bench_torch.REPS
+        require(run_launches == times(graphs),
+                f"bench_torch's run launched {run_launches}, not {times(graphs)} ({graphs} graphs)")
+        zero_launches()
+        driver.run(7)
+        round_launches = launch_counts()
+        require(round_launches == times(bench_torch.B),
+                f"one bench_torch round launched {round_launches}, not {times(bench_torch.B)}")
+        checksum = driver.single(1)
+        require(checksum == bench_checksum,
+                f"bench's graph on pair 0 at s = 1 gave {checksum!r}, phase 13 {bench_checksum!r}")
+
+        # one round enqueued under the sync debug mode: a host sync raises
+        scale = driver.scale(9)
+        torch.cuda.synchronize()
+        sync = {"passed": True}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            total = torch.stack(driver.enqueue(scale)).sum()
+        except RuntimeError as error:
+            frames = [f for f in traceback.extract_tb(error.__traceback__) if "matchering_tpu" in f.filename]
+            frame = frames[-1] if frames else traceback.extract_tb(error.__traceback__)[-1]
+            sync = {"passed": False, "error": str(error).strip().splitlines()[0],
+                    "where": f"{os.path.relpath(frame.filename)}:{frame.lineno}: {frame.line}"}
+            total = None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if total is not None:
+            value = total.item()
+            require(np.isfinite(value) and value > 0, f"the round under the sync debug mode gave {value}")
+        print(f"drivers path: one bench round under the sync debug mode: {sync}", flush=True)
+
+        # the device's busy share of one profiled round
+        round_ms, ops = profile_device(torch, lambda: driver.run(11))
+        round_device_ms = sum(o["device_ms"] for o in ops)
+        numbers["bench_torch"] = {
+            "line": bench_torch.result_line(throughput, bench_torch.B),
+            "rows": rows,
+            "host_build_s": build_s,
+            "staging_s": staging_s,
+            "launches_run": list(run_launches),
+            "launches_round": list(round_launches),
+            "pair0_checksum_s1": checksum,
+            "equal_to_phase13": True,
+            "sync_debug_mode": sync,
+            "profiled_round": {"wall_ms": round_ms, "device_ms": round_device_ms,
+                               "device_busy_share": round_device_ms / round_ms, "top_ops": top(ops, 8, 60)},
+        }
+        print(f"drivers path: bench_torch {throughput:.1f} audio-sec/s, rows "
+              f"{json.dumps({k: v for k, v in rows.items() if k != 'workload'})}", flush=True)
+        pair = host_pairs[0]  # seed 42: the record driver's pair
+        del driver, host_pairs, scale, total
+        torch.cuda.empty_cache()
+
+        # tools_record_bench_torch at its defaults, on bench's seed-42 pair
+        config = mt.Config()
+        record_numbers = {}
+        for name, fn, calls in (
+            ("single", lambda: record.bench_single(config, device=device, pair=pair), record.VARIANTS),
+            ("stages", lambda: record.bench_stages(config, device=device, pair=pair), 1 + record.STAGE_RUNS),
+            ("batch_sweep", lambda: record.bench_batch_sweep(config, sizes=record.SWEEP_SIZES, device=device,
+                                                             pair=pair),
+             len(record.SWEEP_SIZES) * record.VARIANTS),
+        ):
+            torch.cuda.reset_peak_memory_stats(device)
+            zero_launches()
+            start = time.perf_counter()
+            result = fn()
+            launches = launch_counts()
+            require(launches == times(calls), f"record {name} launched {launches}, not {times(calls)}")
+            record_numbers[name] = {"result": result, "launches": list(launches), "calls": calls,
+                                    "seconds": time.perf_counter() - start, "peak_device_gb": peak_gb()}
+            print(f"drivers path: record {name}: {json.dumps(result)}", flush=True)
+        for size, row in record_numbers["batch_sweep"]["result"].items():
+            require(np.isfinite(row["checksum"]) and row["checksum"] > 0, f"the sweep's B={size} checksum is {row}")
+        del pair
+        torch.cuda.empty_cache()
+
+        available = host_available_bytes()
+        if available >= record.LONGFORM_HOST_BYTES:
+            zero_launches()
+            start = time.perf_counter()
+            longform = record.bench_longform(device=device)
+            launches = launch_counts()
+            require(launches == times(4), f"the long form launched {launches}, not {times(4)}")
+            block = longform["int16_staging"]
+            require(block["bit_identical"] and block["results_equal"],
+                    f"the long form's int16 and float32 masters differ: {block}")
+            record_numbers["longform"] = {"result": longform, "launches": list(launches),
+                                          "seconds": time.perf_counter() - start}
+            print(f"drivers path: record longform: {json.dumps(longform)}", flush=True)
+        else:
+            record_numbers["longform"] = {"skipped": f"{available} bytes of host memory available, "
+                                                     f"{record.LONGFORM_HOST_BYTES} needed"}
+        torch.cuda.empty_cache()
+    numbers["tools_record_bench_torch"] = record_numbers
+    numbers["seconds"] = time.perf_counter() - phase_start
+    return numbers
+
+
 def main() -> None:
+    script_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2192,7 +2375,21 @@ def main() -> None:
                                                             ("dryrun_multichip", entry["dryrun_multichip"]),
                                                             ("bench_graph", entry["bench_graph"]["interp_ops_passed"]))}
 
-    # --- 14. results ---
+    # --- 14. the measurement drivers: bench_torch.py, tools_record_bench_torch.py ---
+    drivers = drivers_path(mt, torch, device, entry["bench_graph"]["checksum"])
+    print(json.dumps({"drivers_path": drivers}), flush=True)
+    record_runs = drivers["tools_record_bench_torch"]
+    for index, numbers in enumerate((k1, k2, k3)):
+        numbers["launches_drivers_path"] = {
+            "bench_round": drivers["bench_torch"]["launches_round"][index],
+            "bench_run": drivers["bench_torch"]["launches_run"][index],
+            **{f"record_{name}_per_call": run["launches"][index] // run["calls"]
+               for name, run in record_runs.items() if "calls" in run},
+        }
+
+    # --- 15. results ---
+    print(json.dumps({"script_seconds": time.perf_counter() - script_start,
+                      "drivers_path_seconds": drivers["seconds"]}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({
         "ok": True,
