@@ -159,11 +159,24 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    per graph, per ``limit()`` and per ``master_batch`` call, and, where
    the host has the memory its docstring names, ``bench_longform`` (the
    int16 and float32 masters bit-identical);
-15. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+15. the JAX package's per-track length forms at full width, on phase 4's
+   180 s pair with ``Config()``, the target zero-padded to a multiple of
+   262,144 samples: ``master_graph(target_padded, reference, config,
+   target_length=L_t, reference_length=L_r)`` with the lengths as the
+   one-row ``RowInts``, as ints and as 0-d card tensors, each bit for bit
+   the ``RowInts`` form and > 100 dB against ``master()`` on the unpadded
+   pair (the JAX package's gate for bucket-padded rows); then
+   ``limit(track, config, length=L)`` on the padded 180 s limiter input
+   with an int and a 0-d length, bit for bit the one-row batch; each call
+   with its launches (1 K1, 4 K2, 0 K3), its host reads of the lengths
+   (none with ints, one per 0-d length) and its copies each way, timed
+   over 10 calls (CUDA events) beside the ``RowInts`` form, the forms in
+   turns and then in reverse, no call of a kernel's plain twin allowed;
+16. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
    kernel's batched numbers from phases 3, 7 and 8, its launches in one
    sharded ``limit()`` (phase 9), per process of phase 10's full-width
-   run, per call of phase 13, per round, run and call of phase 14 and,
-   for K2, per public scan of phase 12,
+   run, per call of phase 13, per round, run and call of phase 14, per
+   call of phase 15 and, for K2, per public scan of phase 12,
    and each launch's registers, shared
    memory and resident blocks per SM from the kernels' info queries,
    beside the grid its wrapper recorded for the timed launches), then,
@@ -1957,6 +1970,114 @@ def drivers_path(mt, torch, device, bench_checksum):
     return numbers
 
 
+def jax_forms_path(mt, torch, device, cuda_ms, card):
+    """Phase 15: the JAX package's per-track length forms on the card, at
+    full width (see the module's docstring).  ``card``: the card's name
+    and power limit from ``nvidia-smi``, stamped on the times.  Returns the
+    phase's numbers; fails on any mismatch, and on any call of a kernel's
+    plain twin."""
+    from matchering_tpu_torch import utils
+    from matchering_tpu_torch.utils import RowInts
+
+    config = mt.Config()
+    expected = expected_launches(config)
+    target, reference = make_pair(FULL_SECONDS, SR, SEED)  # phase 4's pair, before its PCM_16 encode
+    n_pad = -(-FULL_N // BUCKET) * BUCKET
+    t_pad = torch.zeros((n_pad, 2), dtype=torch.float32, device=device)
+    t_pad[:FULL_N] = torch.from_numpy(target).to(device)
+    r_card = torch.from_numpy(reference).to(device)
+    # each form's lengths, staged before any timed call
+    forms = {
+        "rowints": (RowInts.of([FULL_N], device), RowInts.of([FULL_N], device)),
+        "int": (FULL_N, FULL_N),
+        "0-d": (torch.tensor(FULL_N, device=device), torch.tensor(FULL_N, device=device)),
+    }
+    reads_expected = {"rowints": 0, "int": 0, "0-d": 2}
+
+    def counted(label, fn, reads):
+        """``fn()`` once with its launches and host reads counted from 0 and
+        its host-device copies traced (``transfer_bytes``), under
+        ``plain_twins_forbidden``: (output, numbers)."""
+        zero_launches()
+        utils.HOST_READS = 0
+        with plain_twins_forbidden(f"phase 15 {label}"):
+            out = fn()
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            host_reads = utils.HOST_READS
+            copies = transfer_bytes(torch, fn)
+        require(launches == expected, f"{label} launched (K1, K2, K3) {launches}, not {expected}")
+        require(host_reads == reads, f"{label} read {host_reads} lengths back from the card, not {reads}")
+        require(copies["d2h_copies"] == reads,
+                f"{label} copied {copies['d2h_copies']} times from the card, not {reads}")
+        numbers = {"k1": launches[0], "k2": launches[1], "k3": launches[2], "host_reads": host_reads,
+                   "d2h_copies": copies["d2h_copies"], "h2d_copies": copies["h2d_copies"],
+                   "h2d_bytes": copies["h2d_bytes"]}
+        print(f"phase 15 {label}: (K1, K2, K3) launches {launches}, host reads {host_reads}, "
+              f"copies to the card {copies['h2d_copies']} ({copies['h2d_bytes']} B), "
+              f"from it {copies['d2h_copies']}", flush=True)
+        return out, numbers
+
+    def in_turns(name, calls):
+        """Each form's time over 10 calls (CUDA events), in turns: the
+        forms in order, then in reverse."""
+        order = list(calls) + list(reversed(calls))
+        for form in order:
+            numbers[name][form].setdefault("ms", []).append(cuda_ms(calls[form], 10))
+
+    numbers = {"card": card, "samples": FULL_N, "padded": n_pad, "master_graph": {}, "limit": {}}
+    outputs, graphs = {}, {}
+    for form, (t_len, r_len) in forms.items():
+        def graph(t_len=t_len, r_len=r_len):
+            return mt.master_graph(t_pad, r_card, config, need_default=True, need_no_limiter=True,
+                                   target_length=t_len, reference_length=r_len)
+
+        outputs[form], numbers["master_graph"][form] = counted(
+            f"master_graph {form} lengths", graph, reads_expected[form])
+        graphs[form] = graph
+    in_turns("master_graph", graphs)
+    for form in ("int", "0-d"):
+        for key in ("result", "result_no_limiter"):
+            require(bool(torch.equal(getattr(outputs[form], key), getattr(outputs["rowints"], key))),
+                    f"master_graph's {key} with {form} lengths differs from the RowInts form")
+    result = outputs["rowints"].result
+    require(bool(torch.isfinite(result).all()), "master_graph's padded result holds non-finite values")
+    require(not bool(result[FULL_N:].any()), "master_graph's padded result is not 0 past the target's length")
+    unpadded = mt.master(target, reference, config, device=device).result
+    measured = card_snr_db(torch, unpadded, result[:FULL_N])
+    require(measured > 100.0, f"the padded master_graph is {measured} dB from master() on the unpadded pair")
+    numbers["master_graph"]["snr_db_vs_unpadded_master"] = measured
+    numbers["master_graph"]["gate_db"] = 100.0
+    # limit() on the padded 180 s limiter input: the master's unlimited result
+    track = outputs["rowints"].result_no_limiter
+    del unpadded, outputs, result
+
+    limited, calls = {}, {}
+    for form, length in (("rowints", forms["rowints"][0]), ("int", FULL_N), ("0-d", forms["0-d"][0])):
+        if form == "rowints":
+            def call(length=length):
+                return mt.limit(track[None], config, length=length)[0]
+        else:
+            def call(length=length):
+                return mt.limit(track, config, length=length)
+
+        limited[form], numbers["limit"][form] = counted(
+            f"limit {form} length", call, 1 if form == "0-d" else 0)
+        calls[form] = call
+    in_turns("limit", calls)
+    for form in ("int", "0-d"):
+        require(bool(torch.equal(limited[form], limited["rowints"])),
+                f"limit() with an {form} length differs from the one-row batch")
+    require(bool(torch.isfinite(limited["int"]).all()), "limit() gave non-finite values")
+    require(not bool(limited["int"][FULL_N:].any()), "limit() is not 0 past the length")
+    numbers["limit"]["peak"] = float(torch.max(torch.abs(limited["int"])))
+    print(f"phase 15 times on {card} (in turns, then reversed): " + ", ".join(
+        f"{name} {form} " + " / ".join(f"{ms:.3f}" for ms in run["ms"]) + " ms"
+        for name in ("master_graph", "limit") for form, run in numbers[name].items() if isinstance(run, dict)
+    ), flush=True)
+    return numbers
+
+
 def main() -> None:
     script_start = time.perf_counter()
     try:
@@ -2387,7 +2508,17 @@ def main() -> None:
                for name, run in record_runs.items() if "calls" in run},
         }
 
-    # --- 15. results ---
+    # --- 15. the JAX package's length forms: int and 0-d lengths, as the one-row batch ---
+    jax_forms = jax_forms_path(mt, torch, device, cuda_ms, card)
+    print(json.dumps({"jax_forms_path": jax_forms}), flush=True)
+    for index, numbers in enumerate((k1, k2, k3)):
+        numbers["launches_jax_forms"] = {
+            f"{name}_{form}": run[("k1", "k2", "k3")[index]]
+            for name in ("master_graph", "limit") for form, run in jax_forms[name].items()
+            if isinstance(run, dict) and "k1" in run
+        }
+
+    # --- 16. results ---
     print(json.dumps({"script_seconds": time.perf_counter() - script_start,
                       "drivers_path_seconds": drivers["seconds"]}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)

@@ -309,10 +309,13 @@ def write_opus(
 
     input_rate = int(sample_rate)
     if input_rate not in _OPUS_RATES:
+        import torch
+
         from ...ops import resample as _resample
 
+        # the writer's resample runs on the host, where the samples are
         array = (
-            _resample.resample(array.astype(np.float64), input_rate, 48000)
+            _resample.resample(torch.from_numpy(array.astype(np.float64)), input_rate, 48000)
             .numpy()
             .astype(np.float32)
         )

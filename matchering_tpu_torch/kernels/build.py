@@ -157,6 +157,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def check_lengths(lengths, rows: int, n: int, minimum: int) -> None:
+    """Raise ValueError unless ``lengths`` (``RowInts``) hold one host int
+    per row, each in [minimum, n]."""
+    if len(lengths.host) != rows:
+        raise ValueError(f"{len(lengths.host)} lengths for {rows} rows")
+    for length in lengths.host:
+        if not minimum <= length <= n:
+            raise ValueError(f"length {length} is outside [{minimum}, {n}]")
+
+
 def lengths_pointer(lengths, rows: int, n: int, minimum: int, device) -> int:
     """The device address of a kernel's per-row lengths (None without
     them), after checking their host copy: one per row, each in
@@ -164,11 +174,7 @@ def lengths_pointer(lengths, rows: int, n: int, minimum: int, device) -> int:
     Nothing is read back from the card."""
     if lengths is None:
         return None
-    if len(lengths.host) != rows:
-        raise ValueError(f"{len(lengths.host)} lengths for {rows} rows")
-    for length in lengths.host:
-        if not minimum <= length <= n:
-            raise ValueError(f"length {length} is outside [{minimum}, {n}]")
+    check_lengths(lengths, rows, n, minimum)
     tensor = lengths.device
     if tensor.dtype != torch.int64 or tensor.device != device or not tensor.is_contiguous():
         raise ValueError("lengths must be a contiguous int64 tensor on the input's device")

@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops import basics, sliding
-from ..utils import RowInts, make_odd
+from ..utils import RowInts, make_odd, stage_host_arrays
 from . import build
 
 LAUNCHES = 0  # calls that launched the CUDA kernel
@@ -58,17 +58,21 @@ def limiter_front_end_plain(
     return gain, sliding.sliding_max_attack_truncated(gain, attack, lengths)
 
 
+@stage_host_arrays
 def limiter_front_end(
     array: torch.Tensor, threshold: float, attack: int, lengths: Optional[RowInts] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n, 2) or (B, n, 2) stereo -> (hard-clip gain, attack-slided gain),
-    each (n,) or (B, n).  ``lengths`` (for a batch): each row's true
-    length, at least the attack window; both outputs are 0 at and past it.
-    A CPU tensor runs the plain twin; a CUDA tensor launches K1."""
+    each (n,) or (B, n).  ``lengths`` (``RowInts``, for a batch): each
+    row's true length, in [attack window, n], else ValueError, on every
+    device; both outputs are 0 at and past it.  A CPU tensor runs the
+    plain twin; a CUDA tensor launches K1."""
     if array.ndim not in (2, 3) or array.shape[-1] != 2:
         raise ValueError(f"expected an (n, 2) or (B, n, 2) stereo tensor, got {tuple(array.shape)}")
-    if lengths is not None and array.ndim != 3:
-        raise ValueError("lengths need a (B, n, 2) batch")
+    if lengths is not None:
+        if array.ndim != 3:
+            raise ValueError("lengths need a (B, n, 2) batch")
+        build.check_lengths(lengths, array.shape[0], array.shape[1], window_for(attack))
     if array.device.type == "cpu":
         return limiter_front_end_plain(array, threshold, attack, lengths)
     if array.device.type != "cuda":

@@ -8,7 +8,8 @@ low-passes of ``hold_filter_order`` and ``release_filter_order``), final
 gain = 1 - max of the three envelopes.
 
 Batch-first: one (n, 2) track or a (B, n, 2) batch, whose rows may end at
-their own true lengths (the JAX package's ``length`` branch).  On every
+their own true lengths (the JAX package's ``length`` branch; a track with
+its length runs as a batch of one row).  On every
 device the front end (gain and attack sliding max) is
 ``kernels.envelope.limiter_front_end``: K1 on CUDA, its plain twin on the
 CPU.  The IIR passes go through ``ops.iir``: the attack's filtfilt is two
@@ -25,7 +26,7 @@ import torch
 from .config import Config
 from .kernels import envelope
 from .ops import basics, iir, sliding
-from .utils import RowInts, ms_to_samples
+from .utils import RowInts, ms_to_samples, stage_host_arrays
 
 
 def _release_stage(slided_attack: torch.Tensor, config: Config) -> torch.Tensor:
@@ -49,15 +50,24 @@ def _release_stage(slided_attack: torch.Tensor, config: Config) -> torch.Tensor:
     return torch.maximum(hold_out, release_out)
 
 
+@stage_host_arrays
 def limit(array: torch.Tensor, config: Config, length=None) -> torch.Tensor:
     """Brickwall-limit a stereo (n, 2) tensor, or each row of a (B, n, 2)
     batch, at ``config.threshold`` on the tensor's own device.
 
-    ``length`` (a batch only): each row's true length, as ``RowInts`` or
-    host ints (those are staged on the device).  The envelope at and past
-    it is "no overage", the attack stage reflects at it, and the output
-    there is 0 (``matchering_tpu/limiter.py:93-143``): row r on [0, L_r)
-    equals ``limit(array[r, :L_r])``.
+    ``length``: the track's true length, the JAX package's form (an int, a
+    numpy int, or a 0-d array or tensor, on an (n, 2) track), or each
+    row's, the port's (``RowInts`` or a sequence of ints, on a batch).
+    The envelope at and past it is "no overage", the attack stage reflects
+    at it, and the output there is 0 (``matchering_tpu/limiter.py:93-143``):
+    row r on [0, L_r) equals ``limit(array[r, :L_r])``.  A track with a
+    length runs as a batch of one row (``RowInts.per_row``: a 0-d tensor
+    on a card is read back to the host once, since K1 and K2 check lengths
+    on the host).  Every length must lie in [attack window, n] (K1's
+    reflection at the end): a shorter one raises ValueError.  The JAX
+    package's own length form is off below 4 * make_odd(attack) - 2
+    samples (its recomputed tail reads a clamped window); this one follows
+    ``limit(array[:L])`` at every length it takes.
 
     The reference's early-out (``hyrax.py:83-85``: nothing exceeds the
     threshold within ``np.isclose`` tolerance, so the input passes through)
@@ -65,10 +75,11 @@ def limit(array: torch.Tensor, config: Config, length=None) -> torch.Tensor:
     no host sync.  It reads K1's gain: |rectified - 1| <= tol  <=>
     gain <= tol/(1+tol), since rectified >= 1 and gain = 1 - 1/rectified
     is monotone."""
-    if not isinstance(array, torch.Tensor):
-        array = torch.as_tensor(array)
-    if length is not None and not isinstance(length, RowInts):
-        length = RowInts.of(length, array.device)
+    single = length is not None and array.ndim == 2
+    if single:
+        array = array[None]
+    if length is not None:
+        length = RowInts.per_row(length, array.device)
     tolerance = 1e-8 + 1e-5 * 1.0  # np.isclose defaults (hyrax.py:83)
     attack = ms_to_samples(config.limiter.attack, config.internal_sample_rate)
     gain_hard_clip, slided = envelope.limiter_front_end(
@@ -82,4 +93,5 @@ def limit(array: torch.Tensor, config: Config, length=None) -> torch.Tensor:
     gain = basics.flip(basics.max_mix(gain_hard_clip, gain_attack, gain_release))
     if length is not None:
         gain = gain * length.mask(array.shape[-2], gain.dtype)
-    return torch.where(not_needed[..., None, None], array, array * gain[..., None])
+    limited = torch.where(not_needed[..., None, None], array, array * gain[..., None])
+    return limited[0] if single else limited

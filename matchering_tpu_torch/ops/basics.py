@@ -18,6 +18,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils import RowInts, stage_host_arrays, torch_dtype
+
 # ---------------------------------------------------------------------------
 # Channel transforms
 
@@ -28,6 +30,7 @@ def per_row(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return value.reshape(value.shape + (1,) * (like.ndim - value.ndim))
 
 
+@stage_host_arrays
 def lr_to_ms(array: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stereo (..., n, 2) -> mid/side pair of (..., n) tensors:
     mid = (L + R) / 2, side = mid - R (reference ``dsp.py:57-64``)."""
@@ -36,12 +39,14 @@ def lr_to_ms(array: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mid, side
 
 
+@stage_host_arrays
 def ms_to_lr(mid: torch.Tensor, side: torch.Tensor) -> torch.Tensor:
     """Mid/side -> stereo (..., n, 2): L = mid + side, R = mid - side
     (reference ``dsp.py:67-68``)."""
     return torch.stack([mid + side, mid - side], dim=-1)
 
 
+@stage_host_arrays
 def mono_to_stereo(array: torch.Tensor) -> torch.Tensor:
     """(..., n, 1) -> (..., n, 2): each channel repeated twice along the
     last axis (the JAX package's ``jnp.repeat(array, 2, axis=1)``)."""
@@ -52,10 +57,12 @@ def mono_to_stereo(array: torch.Tensor) -> torch.Tensor:
 # Gain / amplitude
 
 
+@stage_host_arrays
 def amplify(array: torch.Tensor, gain) -> torch.Tensor:
     return array * gain
 
 
+@stage_host_arrays
 def clip(array: torch.Tensor, to=1.0) -> torch.Tensor:
     """Clamp to [-to, to]; ``to`` may be a float or a tensor of one
     threshold per track (shape (...) of ``array``'s leading axes)."""
@@ -65,10 +72,12 @@ def clip(array: torch.Tensor, to=1.0) -> torch.Tensor:
     return torch.clamp(array, -to, to)
 
 
+@stage_host_arrays
 def flip(array: torch.Tensor) -> torch.Tensor:
     return 1.0 - array
 
 
+@stage_host_arrays
 def max_mix(*arrays: torch.Tensor) -> torch.Tensor:
     out = arrays[0]
     for a in arrays[1:]:
@@ -76,6 +85,7 @@ def max_mix(*arrays: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@stage_host_arrays
 def rectify(array: torch.Tensor, threshold: float) -> torch.Tensor:
     """Cross-channel peak envelope floored at ``threshold`` and normalised
     to it (reference ``dsp.py:117-121``): >= 1, and 1 where the signal
@@ -89,6 +99,7 @@ def rectify(array: torch.Tensor, threshold: float) -> torch.Tensor:
     return torch.maximum(peak, thr) / thr
 
 
+@stage_host_arrays
 def normalize(
     array: torch.Tensor, threshold: float, epsilon: float, normalize_clipped: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -107,6 +118,7 @@ def normalize(
     return array / per_row(coefficient, array), coefficient
 
 
+@stage_host_arrays
 def fade(array: torch.Tensor, fade_size: int) -> torch.Tensor:
     """Linear fade-in/out over ``fade_size`` samples (reference
     ``dsp.py:146-152``)."""
@@ -122,11 +134,13 @@ def fade(array: torch.Tensor, fade_size: int) -> torch.Tensor:
 # RMS statistics
 
 
+@stage_host_arrays
 def rms(array: torch.Tensor) -> torch.Tensor:
     """Root mean square along the last axis (reference ``dsp.py:76-77``)."""
     return torch.sqrt(torch.sum(torch.square(array), dim=-1) / array.shape[-1])
 
 
+@stage_host_arrays
 def unfold(array: torch.Tensor, piece_size: int, divisions: int) -> torch.Tensor:
     """(..., n) -> (..., divisions, piece_size), truncating the tail
     (reference ``dsp.py:71-73``)."""
@@ -134,12 +148,14 @@ def unfold(array: torch.Tensor, piece_size: int, divisions: int) -> torch.Tensor
     return pieces.reshape(pieces.shape[:-1] + (divisions, piece_size))
 
 
+@stage_host_arrays
 def batch_rms(pieces: torch.Tensor) -> torch.Tensor:
     """RMS of each row of (..., divisions, piece_size) pieces (reference
     ``dsp.py:80-86``, there a batched matmul; here a reduction)."""
     return torch.sqrt(torch.mean(torch.square(pieces), dim=-1))
 
 
+@stage_host_arrays
 def piece_rms_flat(array: torch.Tensor, piece_size: int, divisions: int) -> torch.Tensor:
     """Per-piece RMS (..., divisions) of the first ``divisions * piece_size``
     samples of each channel: ``batch_rms(unfold(...))``.  The JAX package
@@ -148,17 +164,29 @@ def piece_rms_flat(array: torch.Tensor, piece_size: int, divisions: int) -> torc
     return batch_rms(unfold(array, piece_size, divisions))
 
 
+def _row_geometry(value, device) -> torch.Tensor:
+    """Per-row piece geometry as a (B,) tensor on ``device``: ``RowInts``'
+    device side, or a tensor or int (0-d: one row), never read back."""
+    if isinstance(value, RowInts):
+        return value.device
+    return torch.as_tensor(value, device=device).reshape(-1)
+
+
 _CHUNK = 4096  # the aligned chunk of the dynamic piece sums (the JAX package's)
 
 
+@stage_host_arrays
 def piece_rms_dynamic(
-    array: torch.Tensor, piece_size: torch.Tensor, divisions: torch.Tensor, div_max: int
+    array: torch.Tensor, piece_size, divisions, div_max: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`piece_rms_flat` with per-row piece geometry, for the channels
     (B, n) of a zero-padded batch (``matchering_tpu.ops.basics``
     ``piece_rms_dynamic``; reference exact-length analysis,
     ``match_levels.py:47-59``).  ``piece_size`` and ``divisions`` are (B,)
-    int64 tensors; ``div_max`` bounds ``divisions`` on the host.
+    int tensors (or ``RowInts``); ``div_max`` bounds ``divisions`` on the
+    host.  A (n,) channel with 0-d or int geometry, the JAX package's
+    form, runs as a batch of one row and returns (div_max,) outputs.  The
+    geometry is never read back to the host.
 
     The energy is summed over aligned chunks of 4096 samples and each piece
     total is the difference of two entries of the chunks' cumulative sum
@@ -168,6 +196,11 @@ def piece_rms_dynamic(
     of samples would lose the difference of two large partial sums.
     Returns ``(rmses, valid)``, each (B, div_max); entries at or past a
     row's division count are meaningless and 0 in ``valid``."""
+    if array.ndim == 1:
+        rmses, valid = piece_rms_dynamic(array[None], piece_size, divisions, div_max)
+        return rmses[0], valid[0]
+    piece_size = _row_geometry(piece_size, array.device)
+    divisions = _row_geometry(divisions, array.device)
     dtype = array.dtype
     rows, n = array.shape
     m = -(-n // _CHUNK)
@@ -193,6 +226,7 @@ def piece_rms_dynamic(
     return rmses, valid
 
 
+@stage_host_arrays
 def masked_rms(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """RMS over the entries selected by a 0/1 ``mask`` along the last axis:
     sqrt(sum(mask*v^2) / max(sum(mask), 1))."""
@@ -201,6 +235,7 @@ def masked_rms(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(total / weight)
 
 
+@stage_host_arrays
 def loudest_piece_stats(rmses: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Loudest-piece mask and match RMS (reference ``match_levels.py:62-71``):
     a piece is "loudest" when its RMS >= the RMS of all piece RMSes; the
@@ -211,12 +246,19 @@ def loudest_piece_stats(rmses: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     return mask, masked_rms(rmses, mask)
 
 
+@stage_host_arrays
 def loudest_piece_stats_masked(
-    rmses: torch.Tensor, valid: torch.Tensor, divisions: torch.Tensor
+    rmses: torch.Tensor, valid: torch.Tensor, divisions
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`loudest_piece_stats` over the ``valid`` prefix of each row of
     (B, div_max) piece RMSes: the average divides by the row's own
-    ``divisions`` (B,), and invalid pieces are never selected."""
+    ``divisions`` (B,), and invalid pieces are never selected.  One
+    track's (div_max,) RMSes with 0-d or int ``divisions`` (the JAX
+    package's form) run as a batch of one row."""
+    if rmses.ndim == 1:
+        mask, match_rms = loudest_piece_stats_masked(rmses[None], valid[None], divisions)
+        return mask[0], match_rms[0]
+    divisions = _row_geometry(divisions, rmses.device)
     average_rms = torch.sqrt(torch.sum(torch.square(rmses) * valid, dim=-1) / divisions)
     mask = (rmses >= average_rms[:, None]).to(rmses.dtype) * valid
     return mask, masked_rms(rmses, mask)
@@ -232,14 +274,18 @@ def pcm_int_scale(dtype) -> float:
     return float(1 << (dtype.itemsize * 8 - 1))
 
 
-def to_working_float(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Cast to the working float dtype; integer PCM codes scale by
-    ``pcm_int_scale``, so raw int16/int32 payloads convert on the device."""
+@stage_host_arrays
+def to_working_float(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Cast to the working float dtype (a torch or numpy dtype, or its
+    name); integer PCM codes scale by ``pcm_int_scale``, so raw
+    int16/int32 payloads convert on the device."""
+    dtype = torch_dtype(dtype)
     if not x.dtype.is_floating_point:
         return x.to(dtype) * (1.0 / pcm_int_scale(x.dtype))
     return x.to(dtype)
 
 
+@stage_host_arrays
 def count_max_peaks(array: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global peak magnitude and how many samples sit at it, with
     ``np.isclose`` tolerances (reference ``dsp.py:49-54``).  Integer PCM is

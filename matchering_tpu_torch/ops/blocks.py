@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import stage_host_arrays
 
+
+@stage_host_arrays
 def overlapping_blocks(x: torch.Tensor, nblocks: int, hop: int, width: int) -> torch.Tensor:
     """(n,) or (n, c) -> (nblocks, width[, c]) with
     ``W[b] = x[b*hop : b*hop + width]``, a view of ``x``.

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import stage_host_arrays
+
 
 # the overlap-save block where the caller names none
 _BLOCK_FFT = 1 << 16
@@ -23,6 +25,7 @@ def _next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+@stage_host_arrays
 def fft_convolve_same_batch(
     signals: torch.Tensor, firs: torch.Tensor, block_fft: Optional[int] = None
 ) -> torch.Tensor:
@@ -58,6 +61,7 @@ def fft_convolve_same_batch(
     return segs.reshape(c, -1)[:, start : start + n]
 
 
+@stage_host_arrays
 def fft_convolve_same(x: torch.Tensor, fir: torch.Tensor, block_fft: int = 1 << 16) -> torch.Tensor:
     """``scipy.signal.fftconvolve(x, fir, mode="same")`` for 1-D inputs:
     one FFT for a short signal, else overlap-save blocks of ``block_fft``

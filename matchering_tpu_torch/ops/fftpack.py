@@ -16,14 +16,18 @@ from typing import Tuple
 
 import torch
 
+from ..utils import stage_host_arrays
+
 rfft = torch.fft.rfft
 
 
+@stage_host_arrays
 def irfft(spectrum: torch.Tensor, n: int, axis: int = -1) -> torch.Tensor:
     """``numpy.fft.irfft(spectrum, n, axis)``."""
     return torch.fft.irfft(spectrum, n=n, dim=axis)
 
 
+@stage_host_arrays
 def four_step_fft(
     x_re: torch.Tensor, x_im: torch.Tensor, inverse: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:

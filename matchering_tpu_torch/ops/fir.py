@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from ..utils import resolve_device, torch_dtype
+from ..utils import resolve_device, stage_host_arrays, torch_dtype
 
 
 def hann_symmetric(n: int, dtype, *, device=None) -> torch.Tensor:
@@ -21,6 +21,7 @@ def hann_symmetric(n: int, dtype, *, device=None) -> torch.Tensor:
     return 0.5 - 0.5 * torch.cos(2.0 * math.pi * k / (n - 1))
 
 
+@stage_host_arrays
 def fir_from_magnitude(curve: torch.Tensor, fft_size: int) -> torch.Tensor:
     """Magnitude curves (..., fft_size//2+1) -> windowed linear-phase FIRs
     (..., fft_size); the shift moves the last axis only."""

@@ -43,7 +43,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..kernels import scan, sos
-from ..utils import RowInts, resolve_device, torch_dtype
+from ..utils import RowInts, resolve_device, stage_host_arrays, torch_dtype
 
 
 class FirstOrderFilter(NamedTuple):
@@ -80,6 +80,7 @@ def butter1_coefficients(cutoff_hz: float, fs: float) -> FirstOrderFilter:
     return FirstOrderFilter(b0=k, b1=k, a1=a1)
 
 
+@stage_host_arrays
 def lfilter_first_order(
     filt: FirstOrderFilter,
     x: torch.Tensor,
@@ -100,6 +101,7 @@ def _host_pole(pole) -> float:
     return float(pole.item()) if isinstance(pole, torch.Tensor) else float(pole)
 
 
+@stage_host_arrays
 def scan_first_order(drive: torch.Tensor, pole) -> torch.Tensor:
     """Solve ``y[i] = drive[i] + pole * y[i-1]`` from zero state along the
     last axis of a (n,) or (rows, n) drive: ``lfilter([1, 0], [1, -pole],
@@ -113,6 +115,7 @@ def scan_first_order(drive: torch.Tensor, pole) -> torch.Tensor:
     return scan.first_order_filter(drive.contiguous(), 1.0, 0.0, -_host_pole(pole))
 
 
+@stage_host_arrays
 def block_scan_summary(drive: torch.Tensor, pole) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The zero-state scan of a block and the block's affine carry map:
     ``(local, (pole**n, local[..., -1]))``.  The block's true output is
@@ -131,6 +134,7 @@ def _split(y: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (y - hi.to(torch.float64)).to(dtype)
 
 
+@stage_host_arrays
 def scan_first_order_ds(drive_hi: torch.Tensor, drive_lo: torch.Tensor, pole) -> Tuple[torch.Tensor, torch.Tensor]:
     """The solve of :func:`scan_first_order` for a drive carried as a
     float32 (hi, lo) pair, returned as one: ``y_hi + y_lo`` holds about
@@ -158,6 +162,7 @@ def ds_pole_powers(pole: float, n: int, dtype, *, device=None) -> Tuple[torch.Te
 _PADLEN = 6  # scipy.signal.filtfilt's default odd extension for a first-order filter
 
 
+@stage_host_arrays
 def filtfilt_first_order(
     filt: FirstOrderFilter, x: torch.Tensor, lengths: Optional[RowInts] = None
 ) -> torch.Tensor:
@@ -224,17 +229,17 @@ def _filtfilt_rows(
     return y[:, padlen:]
 
 
+@stage_host_arrays
 def filtfilt_first_order_truncated(filt: FirstOrderFilter, x: torch.Tensor, length) -> torch.Tensor:
     """``scipy.signal.filtfilt(b, a, x[:length])`` of a (n,) zero-padded
     track, 0 at and past ``length``: the one-row form of
     :func:`filtfilt_first_order` with ``lengths``, two K2 launches.
 
-    ``length``: an int, a one-row ``RowInts``, or a 0-d int tensor, read
-    back to the host once (K2 checks its lengths on the host); at least 7
-    (scipy's odd extension reads ``x[length-7 .. length-1]``)."""
-    if not isinstance(length, RowInts):
-        host = int(length.item()) if isinstance(length, torch.Tensor) else int(length)
-        length = RowInts((host,), torch.full((1,), host, dtype=torch.int64, device=x.device))
+    ``length``: an int, a numpy int, a one-row ``RowInts``, or a 0-d
+    array or tensor, read back to the host once (``RowInts.per_row``: K2
+    checks its lengths on the host); at least 7 (scipy's odd extension
+    reads ``x[length-7 .. length-1]``)."""
+    length = RowInts.per_row(length, x.device)
     if not _PADLEN + 1 <= length.host[0] <= x.shape[-1]:
         raise ValueError(f"length {length.host[0]} is outside [7, {x.shape[-1]}]")
     return filtfilt_first_order(filt, x.reshape(1, -1).contiguous(), length)[0]
@@ -289,6 +294,7 @@ def sos_cascade(sections: Sequence[SecondOrderSection], x: torch.Tensor) -> torc
     return x
 
 
+@stage_host_arrays
 def butter_lowpass(order: int, cutoff_hz: float, fs: float, x: torch.Tensor) -> torch.Tensor:
     """``scipy.signal.lfilter(*scipy.signal.butter(order, f, fs=fs), x)``
     with zero initial state, along the last axis: order 1 in closed form
@@ -299,6 +305,7 @@ def butter_lowpass(order: int, cutoff_hz: float, fs: float, x: torch.Tensor) -> 
     return sos_cascade(butter_sos(order, float(cutoff_hz), float(fs)), x)
 
 
+@stage_host_arrays
 def lfilter(b: Sequence[float], a: Sequence[float], x: torch.Tensor) -> torch.Tensor:
     """``scipy.signal.lfilter(b, a, x)`` with zero initial state, any order,
     along the last axis (host coefficients, normalised by a[0]): order 1

@@ -27,6 +27,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import stage_host_arrays
+
 
 class LowessPlan(NamedTuple):
     """Static host-side plan (numpy arrays)."""
@@ -233,6 +235,7 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (ordered[..., (n - 1) // 2] + ordered[..., n // 2])
 
 
+@stage_host_arrays
 def smooth(
     y: torch.Tensor,
     frac: Optional[float] = None,

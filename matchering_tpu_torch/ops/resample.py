@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import stage_host_arrays
 from .basics import to_working_float
 
 # resampy's kaiser_best design constants
@@ -188,17 +189,16 @@ def _resample_windowed(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
 _WINDOW_BYTES_CAP = 1 << 30
 
 
+@stage_host_arrays
 def resample(x, sr_in: int, sr_out: int) -> torch.Tensor:
-    """Resample ``x`` ((n,) or (n, channels), a tensor or an array; raw
-    integer PCM converts at full scale) along axis 0, in float64 on the
-    tensor's device (the host for an array).
+    """Resample ``x`` ((n,) or (n, channels); raw integer PCM converts at
+    full scale) along axis 0, in float64 on the tensor's device (a host
+    array is staged on the card, ``utils.stage_host_arrays``).
 
     Output length is ``ceil(n * sr_out / sr_in)`` (resampy convention), and
     samples beyond either edge of the input are treated as zero (resampy
     truncates the filter wings at the edges, which is equivalent).
     """
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.require(x, requirements=["C", "W"]))
     x = to_working_float(x, torch.float64)
     if sr_in == sr_out:
         return x

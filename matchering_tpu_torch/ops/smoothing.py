@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils import resolve_device, torch_dtype
+from ..utils import resolve_device, stage_host_arrays, torch_dtype
 from . import lowess
 
 
@@ -177,6 +177,7 @@ def as_smoothing(operators, grid_points: int, lowess_params, dtype: torch.dtype,
     return Smoothing(to_log, to_lin, plan)
 
 
+@stage_host_arrays
 def smooth_exponentially(
     matching_fft: torch.Tensor,
     sample_rate: int,

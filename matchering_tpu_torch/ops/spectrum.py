@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from ..utils import RowInts
+from ..utils import RowInts, stage_host_arrays
 
 
 def _frames(signal: torch.Tensor, piece_size: int, divisions: int, fft_size: int):
@@ -28,6 +28,7 @@ def _frames(signal: torch.Tensor, piece_size: int, divisions: int, fft_size: int
     return pieces[..., : frames_per_piece * fft_size].reshape(lead + (-1, fft_size))
 
 
+@stage_host_arrays
 def framed_magnitude_mean(pieces: torch.Tensor, fft_size: int) -> torch.Tensor:
     """Per-piece mean boxcar |rFFT|/fft_size spectrum:
     (..., divisions, piece_size) -> (..., divisions, fft_size//2 + 1)."""
@@ -37,6 +38,7 @@ def framed_magnitude_mean(pieces: torch.Tensor, fft_size: int) -> torch.Tensor:
     return torch.mean(torch.abs(torch.fft.rfft(frames, dim=-1)) / fft_size, dim=-2)
 
 
+@stage_host_arrays
 def masked_average_spectrum(pieces: torch.Tensor, mask: torch.Tensor, fft_size: int) -> torch.Tensor:
     """Average |rFFT| spectrum over the frames of the mask-selected pieces
     of (..., divisions, piece_size) ``pieces``; ``mask`` is (..., divisions)
@@ -46,6 +48,7 @@ def masked_average_spectrum(pieces: torch.Tensor, mask: torch.Tensor, fft_size: 
     return torch.sum(per_piece * mask[..., None], dim=-2) / weight[..., None]
 
 
+@stage_host_arrays
 def masked_average_spectrum_flat(
     array: torch.Tensor, mask: torch.Tensor, piece_size: int, divisions: int, fft_size: int
 ) -> torch.Tensor:
@@ -60,6 +63,7 @@ def masked_average_spectrum_flat(
     return torch.sum(mag * weights[..., None], dim=-2) / selected[..., None]
 
 
+@stage_host_arrays
 def masked_average_spectrum_dynamic(
     array: torch.Tensor,
     mask: torch.Tensor,
@@ -94,6 +98,7 @@ def masked_average_spectrum_dynamic(
     return total / (selected * torch.clamp(frames_per_piece, min=1))
 
 
+@stage_host_arrays
 def masked_average_spectrum_flat_pair(
     signal_a: torch.Tensor,
     signal_b: torch.Tensor,
@@ -111,11 +116,12 @@ def masked_average_spectrum_flat_pair(
     )
 
 
+@stage_host_arrays
 def masked_average_spectrum_dynamic_pair(
     signal_a: torch.Tensor,
     signal_b: torch.Tensor,
     mask: torch.Tensor,
-    piece_size: RowInts,
+    piece_size,
     div_max: int,
     fft_size: int,
     fpp_max: int,
@@ -125,14 +131,25 @@ def masked_average_spectrum_dynamic_pair(
     tracks at their true lengths).
 
     ``piece_size`` holds the rows' piece sizes, host ints and a device
-    tensor; ``mask`` is the (B, div_max) piece mask, already zero past each
-    row's division count (``basics.loudest_piece_stats_masked``).  Frame
+    tensor (``RowInts``); ``mask`` is the (B, div_max) piece mask, already
+    zero past each row's division count
+    (``basics.loudest_piece_stats_masked``).  Two (n,) channels with a
+    (div_max,) mask and an int or 0-d piece size (the JAX package's form)
+    run as a batch of one row; a 0-d tensor on a card is read back to the
+    host once (``RowInts.per_row``), since the frames are views sized on
+    the host.  Frame
     (p, f) of row r starts at ``p * piece_size[r] + f * fft_size``: for one
     row that is a strided view of the zero-padded row, strides
     ``(piece_size[r], fft_size, 1)`` from the host ints, so no index tensor
     is built (an int64 gather index would take twice the bytes of the
     frames).  Frames past a row's ``piece_size // fft_size`` carry zero
     weight, as in the JAX package."""
+    if signal_a.ndim == 1:
+        a, b = masked_average_spectrum_dynamic_pair(
+            signal_a[None], signal_b[None], mask[None], piece_size, div_max, fft_size, fpp_max
+        )
+        return a[0], b[0]
+    piece_size = RowInts.per_row(piece_size, signal_a.device)
     rows = signal_a.shape[0]
     slice_len = fpp_max * fft_size
     frames_per_piece = piece_size.device // fft_size

@@ -55,7 +55,7 @@ from ..kernels import envelope
 from ..ops import basics, convolve, iir, sliding
 from ..stages import MasterOutput, _fir_from_spectra, check_lengths, piece_division
 from ..state import operators_for_config
-from ..utils import RowInts, make_odd, ms_to_samples, resolve_device, to_device
+from ..utils import RowInts, host_int, make_odd, ms_to_samples, resolve_device, to_device
 from .mesh import Mesh, make_mesh, single_axis_mesh
 
 Sharded = List[torch.Tensor]  # one (R, block, ...) tensor per device
@@ -331,14 +331,17 @@ def filtfilt_first_order_sharded(filt: iir.FirstOrderFilter, parts: Sharded, gri
 
 
 def filtfilt_first_order_sharded_truncated(
-    filt: iir.FirstOrderFilter, parts: Sharded, length: int, grid: TimeGrid
+    filt: iir.FirstOrderFilter, parts: Sharded, length, grid: TimeGrid
 ) -> Sharded:
     """``scipy.signal.filtfilt(b, a, x[:length])`` where ``length`` ends
     inside the last shard, 0 past it: the sharded form of
     ``ops.iir._filtfilt_rows``.  The forward chain is causal; the tail
     extension reads ``x[length-7 .. length-1]`` and the forward output at
     ``length - 1``, and the backward chain starts at ``length - 1`` (K2's
-    length mode on the last shard).  Four K2 launches per device."""
+    length mode on the last shard).  Four K2 launches per device.
+    ``length``: an int, a numpy int or a 0-d array or tensor, as in the
+    JAX package (a tensor on a card is read back once, ``utils.host_int``)."""
+    length = host_int(length)
     block = parts[0].shape[1]
     last = length - (grid.count - 1) * block
     y1, _ = _carried(filt, parts, grid, init=_head_states(filt, parts, grid))
@@ -581,16 +584,19 @@ def _require_first_order(config: Config) -> None:
         )
 
 
-def limit_sharded(parts: Sharded, config: Config, grid: TimeGrid, length: Optional[int] = None) -> Sharded:
+def limit_sharded(parts: Sharded, config: Config, grid: TimeGrid, length=None) -> Sharded:
     """Time-sharded Hyrax limiter (``limiter.limit``) over stereo shards
     (R, block, 2): one K1 and eight K2 launches per device.
 
-    ``length`` (a host int ending inside the last shard): the track's true
+    ``length`` (ending inside the last shard; an int, a numpy int or a 0-d
+    array or tensor, read back once from a card): the track's true
     length; the gain envelope then ends there (K1's length mode, the
     truncated filtfilt) and the output past it is 0.  The reference's
     early-out (nothing over the threshold: the input passes through) is a
     ``torch.where`` on the device, over every shard."""
     _require_first_order(config)
+    if length is not None:
+        length = host_int(length)
     limiter = config.limiter
     fs = config.internal_sample_rate
     attack = ms_to_samples(limiter.attack, fs)

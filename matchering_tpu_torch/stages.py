@@ -29,7 +29,16 @@ from .limiter import limit
 from .log import Code, debug, debug_line, info
 from .ops import basics, convolve, fir, smoothing, spectrum
 from .state import operators_for_config
-from .utils import RowInts, make_odd, ms_to_samples, resolve_device, to_db, to_device
+from .utils import (
+    RowInts,
+    host_int,
+    make_odd,
+    ms_to_samples,
+    resolve_device,
+    stage_host_arrays,
+    to_db,
+    to_device,
+)
 
 
 class MasterOutput(NamedTuple):
@@ -139,6 +148,7 @@ def _fir_from_spectra(
     return fir.fir_from_magnitude(smoothed, config.fft_size)
 
 
+@stage_host_arrays
 def master_graph(
     target: torch.Tensor,
     reference: torch.Tensor,
@@ -147,8 +157,8 @@ def master_graph(
     need_no_limiter: bool = False,
     need_no_limiter_normalized: bool = False,
     interp_ops=None,
-    target_length: Optional[RowInts] = None,
-    reference_length: Optional[RowInts] = None,
+    target_length=None,
+    reference_length=None,
 ) -> MasterOutput:
     """The full mastering computation on the inputs' device.
 
@@ -165,18 +175,23 @@ def master_graph(
     iterations run here too, still with no host sync (the median comes
     from a device sort).
 
-    ``target_length`` / ``reference_length`` (``RowInts``, one per row,
-    both or neither): the true lengths of zero-padded tracks.  Every
-    length-dependent quantity (piece division, loudest-piece statistics,
-    averaged spectra, the limiter's end) then follows each track's true
-    length, so row r reproduces the master of the unpadded pair r, and
-    output samples past ``target_length`` are 0.  Everything here is
-    already on the device: the graph makes no host sync on this path."""
-    if (target_length is None) != (reference_length is None):
-        raise ValueError("pass both target_length and reference_length, or neither")
+    ``target_length`` / ``reference_length`` (each optional): the true
+    lengths of zero-padded tracks, ``RowInts`` or ints, one per row, or
+    for one pair an int, a numpy int or a 0-d array or tensor, as in the
+    JAX package (``RowInts.per_row``: a 0-d tensor on a card is read back
+    to the host once).  Every length-dependent quantity of that track
+    (piece division, loudest-piece statistics, averaged spectra, and for
+    the target the limiter's end) then follows its true length, so row r
+    reproduces the master of the unpadded pair r, and output samples past
+    ``target_length`` are 0.  Given as ``RowInts`` everything is already
+    on the device: the graph makes no host sync on this path."""
     single = target.ndim == 2  # one pair is one row
     if single:
         target, reference = target[None], reference[None]
+    if target_length is not None:
+        target_length = RowInts.per_row(target_length, target.device)
+    if reference_length is not None:
+        reference_length = RowInts.per_row(reference_length, reference.device)
     dtype = config.torch_dtype
     if interp_ops is None:
         operators = operators_for_config(config, target.device)
@@ -198,15 +213,13 @@ def master_graph(
     )
     report["final_amplitude_coefficient"] = final_amplitude_coefficient
 
+    t_division, r_division = (
+        _Division.static(track.shape[1], config.max_piece_size)
+        if length is None
+        else _Division.dynamic(track.shape[1], length, config.max_piece_size)
+        for track, length in ((target, target_length), (reference, reference_length))
+    )
     n = target.shape[1]
-    if target_length is None:
-        t_division = _Division.static(n, config.max_piece_size)
-        r_division = _Division.static(reference.shape[1], config.max_piece_size)
-    else:
-        t_division = _Division.dynamic(n, target_length, config.max_piece_size)
-        r_division = _Division.dynamic(
-            reference.shape[1], reference_length, config.max_piece_size
-        )
 
     target_mid, target_side = basics.lr_to_ms(target)
     reference_mid, reference_side = basics.lr_to_ms(reference)
@@ -313,8 +326,8 @@ def master(
     need_default: bool = True,
     need_no_limiter: bool = False,
     need_no_limiter_normalized: bool = False,
-    target_length: Optional[int] = None,
-    reference_length: Optional[int] = None,
+    target_length=None,
+    reference_length=None,
     *,
     device=None,
 ) -> MasterOutput:
@@ -322,19 +335,19 @@ def master(
     named; no CPU fallback), with the smoothing state built on the host
     and moved there.  Inputs may be numpy arrays or tensors.
 
-    ``target_length`` / ``reference_length`` (host ints, both or neither):
-    the true lengths of zero-padded tracks, checked here against the padded
+    ``target_length`` / ``reference_length`` (each optional; an int, a
+    numpy int, or a 0-d array or tensor, which is read back once): the
+    true lengths of zero-padded tracks, checked here against the padded
     lengths and :func:`minimum_length` before anything is staged."""
     device = resolve_device(device)
-    if (target_length is None) != (reference_length is None):
-        raise ValueError("pass both target_length and reference_length, or neither")
-    if target_length is not None:
-        (target_length,) = check_lengths([target_length], target.shape[0], config, "target")
-        (reference_length,) = check_lengths(
-            [reference_length], reference.shape[0], config, "reference"
-        )
-        target_length = RowInts.of([target_length], device)
-        reference_length = RowInts.of([reference_length], device)
+    lengths = []
+    for length, track, role in (
+        (target_length, target, "target"), (reference_length, reference, "reference")
+    ):
+        if length is not None:
+            (length,) = check_lengths([host_int(length)], track.shape[0], config, role)
+            length = RowInts.of([length], device)
+        lengths.append(length)
     return master_graph(
         to_device(target, device),
         to_device(reference, device),
@@ -342,8 +355,8 @@ def master(
         need_default=need_default,
         need_no_limiter=need_no_limiter,
         need_no_limiter_normalized=need_no_limiter_normalized,
-        target_length=target_length,
-        reference_length=reference_length,
+        target_length=lengths[0],
+        reference_length=lengths[1],
     )
 
 

@@ -3,12 +3,15 @@ port's device rules."""
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import random
 import string
 from datetime import timedelta
 from typing import NamedTuple, Tuple
+
+import numpy as np
 
 
 def get_temp_folder(results: list) -> str:
@@ -56,15 +59,60 @@ def resolve_device(device=None):
     return device
 
 
+def stage_host_arrays(fn):
+    """Decorate a public function whose JAX twin computes on the device:
+    a host (numpy) array passed as an argument is staged where the call
+    runs, as JAX puts it on its default device, and never runs silently
+    on the CPU.  The call runs on the device of its tensor arguments, or,
+    with none, on ``resolve_device(device)`` (the card unless a ``device``
+    keyword names another; without a card that raises).  A 0-d host array
+    is a host scalar, as a numpy scalar is."""
+
+    @functools.wraps(fn)
+    def staged(*args, **kwargs):
+        values = args + tuple(kwargs.values())
+        if not any(isinstance(v, np.ndarray) for v in values):
+            return fn(*args, **kwargs)
+        import torch
+
+        tensors = [v for v in values if isinstance(v, torch.Tensor)]
+        device = tensors[0].device if tensors else resolve_device(kwargs.get("device"))
+
+        def stage(v):
+            if not isinstance(v, np.ndarray):
+                return v
+            return v.item() if v.ndim == 0 else to_device(v, device)
+
+        return fn(*map(stage, args), **{k: stage(v) for k, v in kwargs.items()})
+
+    return staged
+
+
 def torch_dtype(dtype):
     """A torch dtype from a torch dtype or a numpy dtype or its name
     ("float32", ``np.float64``)."""
-    import numpy as np
     import torch
 
     if isinstance(dtype, torch.dtype):
         return dtype
     return getattr(torch, np.dtype(dtype).name)
+
+
+HOST_READS = 0  # lengths read back from a card by host_int and RowInts.per_row
+
+
+def host_int(value) -> int:
+    """One per-track length or piece geometry value, in any of the JAX
+    package's forms (a Python or numpy int, a 0-d array or tensor), as a
+    host int.  A tensor on a card is read back (one host sync, counted in
+    ``HOST_READS``): the kernels check lengths and size launches on the
+    host."""
+    import torch
+
+    global HOST_READS
+    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+        HOST_READS += 1
+    return int(value)
 
 
 class RowInts(NamedTuple):
@@ -84,6 +132,30 @@ class RowInts(NamedTuple):
 
         host = tuple(int(v) for v in values)
         return cls(host, torch.tensor(host, dtype=torch.int64, device=device))
+
+    @classmethod
+    def per_row(cls, value, device) -> "RowInts":
+        """The port's form of the JAX package's per-track lengths and piece
+        geometry: ``RowInts`` as they are; a scalar (a Python or numpy int,
+        a 0-d array or tensor) as one row, for an unbatched input that runs
+        as a batch of one; a sequence or 1-d tensor as one value per row.
+        A tensor's values are read back to the host once (from a card, one
+        host sync, counted in ``HOST_READS``), and the tensor itself is the
+        device side where it is on ``device`` already."""
+        import torch
+
+        if isinstance(value, RowInts):
+            return value
+        if isinstance(value, torch.Tensor):
+            global HOST_READS
+            rows = value.reshape(-1)
+            host = tuple(int(v) for v in rows.tolist())
+            if value.device.type != "cpu":
+                HOST_READS += 1
+            return cls(host, rows.to(device=device, dtype=torch.int64))
+        if np.ndim(value) == 0:
+            return cls.of([int(value)], device)
+        return cls.of(value, device)
 
     def plus(self, offset: int) -> "RowInts":
         """Every value moved by ``offset``, on both sides."""
@@ -107,7 +179,6 @@ def to_device(array, device):
     pageable memory runs at a fraction of the link's rate.  One bound for
     the CPU is wrapped, after a copy only where its buffer is read-only (a
     decoded file), since a tensor may not share read-only memory."""
-    import numpy as np
     import torch
 
     if isinstance(array, torch.Tensor):

@@ -69,7 +69,7 @@ def test_chunked_product_matches_jax(monkeypatch):
     x = _signal(7, 20_000, 2, False)
     width = tresample.plan_resample(48000, 44100).weights.shape[1]
     monkeypatch.setattr(tresample, "_WINDOW_BYTES_CAP", 3 * 2 * width * 8)
-    got = tresample.resample(x, 48000, 44100).numpy()
+    got = tresample.resample(torch.from_numpy(x), 48000, 44100).numpy()
     want = _jax_resample(x, 48000, 44100)
     assert got.shape == want.shape
     assert float(np.max(np.abs(got - want))) <= TOL
@@ -77,7 +77,7 @@ def test_chunked_product_matches_jax(monkeypatch):
 
 def test_same_rate_converts_only():
     x = _signal(3, 1000, 2, True)
-    got = tresample.resample(x, 44100, 44100)
+    got = tresample.resample(torch.from_numpy(x), 44100, 44100)
     assert got.dtype == torch.float64
     np.testing.assert_array_equal(got.numpy(), x / 2**15)
 
