@@ -172,11 +172,26 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    (none with ints, one per 0-d length) and its copies each way, timed
    over 10 calls (CUDA events) beside the ``RowInts`` form, the forms in
    turns and then in reverse, no call of a kernel's plain twin allowed;
-16. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+16. the smoothing forms at full width, on phase 4's 180 s pair in float32
+   with ``Config()``, ``lowess_delta=1e-4``, ``fft_size=2048,
+   lin_log_oversampling=1`` (the two configs whose folded LOWESS keeps
+   every grid point as an anchor) and orders 2/2 with ``lowess_it=1``
+   (K3, the device LOWESS): ``master()`` and ``master_graph`` with
+   ``interp_ops`` None, the ``Smoothing`` and the port's pair (bench's
+   call form), each within one float32 ulp at 1.0 of ``master()`` (bit
+   for bit but where K2's look-back rounds a carry otherwise), with
+   ``expected_launches(config)``, no host read and no copy from the card
+   per call, timed over 10 calls (CUDA events) in turns and then in
+   reverse; the pair form on a 30 s excerpt >= 95 dB against the CPU's
+   float64 ``master``; then bench's graph at ``Config()`` on its pair 0,
+   bit for bit phase 13's checksum; no call of a kernel's plain twin
+   allowed;
+17. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
    kernel's batched numbers from phases 3, 7 and 8, its launches in one
    sharded ``limit()`` (phase 9), per process of phase 10's full-width
    run, per call of phase 13, per round, run and call of phase 14, per
-   call of phase 15 and, for K2, per public scan of phase 12,
+   call of phase 15 and of each config of phase 16 and, for K2, per
+   public scan of phase 12,
    and each launch's registers, shared
    memory and resident blocks per SM from the kernels' info queries,
    beside the grid its wrapper recorded for the timed launches), then,
@@ -391,23 +406,15 @@ def require_equality_on_card(label, calls):
             f"{label}: the equality check's inputs were {EQUALITY_INPUTS}, not {calls} pairs of CUDA tensors")
 
 
-def transfer_bytes(torch, fn):
-    """The host-to-device and device-to-host copies of one call of ``fn``
-    under the profiler, counted two ways.  The count that is checked
-    (``h2d_bytes``, ``d2h_bytes`` and their copies) comes from a dispatch
-    mode that sees every tensor op of the call: each ``_to_copy`` and
-    ``copy_`` between the host and the card, and each scalar read back
-    (``_local_scalar_dense``), at the bytes of its source.  The
-    profiler's trace gives ``profiled``: the bytes of its copy records
-    (``gpu_memcpy``, each record's ``bytes``), each copy of a MB or more,
-    and the runtime copy calls that have no record.  In this script's
-    process the trace has lacked the records of a session's first
-    host-to-device copies while their runtime calls were there, so it
-    only stands beside the count."""
+def copy_counter(torch, moved):
+    """A dispatch mode that adds each copy between the host and the card to
+    ``moved`` (``h2d_bytes``, ``h2d_copies``, ``d2h_bytes``,
+    ``d2h_copies``): each ``_to_copy`` and ``copy_`` across, and each
+    scalar read back (``_local_scalar_dense``), at the bytes of its
+    source."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     aten = torch.ops.aten
-    moved = {"h2d_bytes": 0, "h2d_copies": 0, "d2h_bytes": 0, "d2h_copies": 0}
 
     class CopyCounter(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -427,8 +434,23 @@ def transfer_bytes(torch, fn):
                 moved[f"{way}_copies"] += 1
             return out
 
+    return CopyCounter()
+
+
+def transfer_bytes(torch, fn):
+    """The host-to-device and device-to-host copies of one call of ``fn``
+    under the profiler, counted two ways.  The count that is checked
+    (``h2d_bytes``, ``d2h_bytes`` and their copies) comes from
+    :func:`copy_counter`, which sees every tensor op of the call.  The
+    profiler's trace gives ``profiled``: the bytes of its copy records
+    (``gpu_memcpy``, each record's ``bytes``), each copy of a MB or more,
+    and the runtime copy calls that have no record.  In this script's
+    process the trace has lacked the records of a session's first
+    host-to-device copies while their runtime calls were there, so it
+    only stands beside the count."""
+    moved = {"h2d_bytes": 0, "h2d_copies": 0, "d2h_bytes": 0, "d2h_copies": 0}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        with CopyCounter():
+        with copy_counter(torch, moved):
             fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
@@ -2078,6 +2100,111 @@ def jax_forms_path(mt, torch, device, cuda_ms, card):
     return numbers
 
 
+# phase 16: Config() and the two configs whose folded LOWESS keeps every
+# grid point as an anchor (the JAX package smooths twice there), and orders
+# 2/2 with lowess_it=1 (K3, the device LOWESS)
+WALK_CONFIGS = {
+    "default": {},
+    "lowess_delta=1e-4": {"lowess_delta": 1e-4},
+    "fft_size=2048,lin_log_oversampling=1": {"fft_size": 2048, "lin_log_oversampling": 1},
+    "orders 2/2,lowess_it=1": {"lowess_it": 1, "limiter": {"hold_filter_order": 2, "release_filter_order": 2}},
+}
+BENCH_CHECKSUM_RECORDED = 3975024.0  # phase 13's bench checksum on the H100 (PERF.md §6)
+
+
+def walk_config(mt, kwargs, dtype="float32"):
+    """The ``Config`` of a ``WALK_CONFIGS`` entry in ``dtype``."""
+    kwargs = dict(kwargs)
+    limiter = mt.LimiterConfig(**kwargs.pop("limiter", {}))
+    return mt.Config(dtype=dtype, limiter=limiter, **kwargs)
+
+
+def config_walk_path(mt, torch, device, cuda_ms, card, bench_checksum):
+    """Phase 16: every smoothing form on the configs of ``WALK_CONFIGS`` at
+    full width (see the module's docstring).  ``card``: the card's name
+    and power limit from ``nvidia-smi``, stamped on the times;
+    ``bench_checksum``: phase 13's.  Returns the phase's numbers; fails on
+    any mismatch, and on any call of a kernel's plain twin."""
+    from matchering_tpu_torch import state, utils
+    from matchering_tpu_torch.ops import smoothing
+
+    start = time.perf_counter()
+    target, reference = make_pair(FULL_SECONDS, SR, SEED)  # phase 4's pair, before its PCM_16 encode
+    t_card, r_card = (torch.from_numpy(x).to(device) for x in (target, reference))
+    excerpt = SNR_SECONDS * SR
+    numbers = {"card": card, "samples": FULL_N, "snr_samples": excerpt, "gate_db": SNR_GATE_DB, "configs": {}}
+    for name, kwargs in WALK_CONFIGS.items():
+        config = walk_config(mt, kwargs)
+        expected = expected_launches(config)
+        smoothing_state = state.operators_for_config(config, device)
+        pair = smoothing.operator_arrays_for_config(config)
+
+        def graph(interp_ops, t=t_card, r=r_card, config=config):
+            return mt.master_graph(t, r, config, need_default=True, interp_ops=interp_ops).result
+
+        forms = {
+            "master()": lambda config=config: mt.master(t_card, r_card, config, device=device).result,
+            "interp_ops=None": lambda: graph(None),
+            "interp_ops=Smoothing": lambda ops=smoothing_state: graph(ops),
+            # bench's call form (bench_torch.py's Bench.graph)
+            "interp_ops=pair": lambda ops=pair: graph(ops),
+        }
+        for fn in forms.values():
+            fn()  # warm: the operators of a new config are built and staged here
+        torch.cuda.synchronize()
+        outputs, runs = {}, {}
+        for form, fn in forms.items():
+            zero_launches()
+            utils.HOST_READS = 0
+            moved = {"h2d_bytes": 0, "h2d_copies": 0, "d2h_bytes": 0, "d2h_copies": 0}
+            with plain_twins_forbidden(f"phase 16 {name} {form}"):
+                with copy_counter(torch, moved):
+                    outputs[form] = fn()
+                torch.cuda.synchronize()
+            launches = launch_counts()
+            require(launches == expected, f"phase 16 {name} {form} launched (K1, K2, K3) {launches}, not {expected}")
+            require(utils.HOST_READS == 0 and moved["d2h_copies"] == 0,
+                    f"phase 16 {name} {form} read the card back: {utils.HOST_READS} host reads, {moved}")
+            runs[form] = {"k1": launches[0], "k2": launches[1], "k3": launches[2], "host_reads": utils.HOST_READS,
+                          "d2h_copies": moved["d2h_copies"], "h2d_copies": moved["h2d_copies"], "ms": []}
+        first = outputs["master()"]
+        require(bool(torch.isfinite(first).all()), f"phase 16 {name}: non-finite values")
+        # K2's look-back may round its carries differently from run to run
+        diffs = {form: float((out - first).abs().max()) for form, out in outputs.items()}
+        require(max(diffs.values()) <= SCAN_TOL, f"phase 16 {name}: the forms differ from master() by {diffs}")
+        del outputs, first
+        order = list(forms) + list(reversed(forms))
+        for form in order:
+            runs[form]["ms"].append(cuda_ms(forms[form], 10))
+        # the card's float32 pair form against the CPU's float64 master, on an excerpt
+        card_out = mt.master_graph(t_card[:excerpt], r_card[:excerpt], config, need_default=True,
+                                   interp_ops=pair).result.cpu().numpy()
+        cpu_out = mt.master(target[:excerpt], reference[:excerpt], walk_config(mt, kwargs, "float64"),
+                            device="cpu").result.numpy()
+        measured = snr_db(cpu_out, card_out)
+        require(measured >= SNR_GATE_DB, f"phase 16 {name}: card float32 at {measured} dB < {SNR_GATE_DB} dB")
+        numbers["configs"][name] = {"expected_launches": list(expected), "forms": runs,
+                                    "max_abs_diff_vs_master": diffs, "snr_db_vs_cpu_f64": measured}
+        print(f"phase 16 {name}: forms vs master() max abs diff {diffs}, {measured:.2f} dB vs CPU f64, "
+              f"launches {expected}, on {card}: " + ", ".join(
+                  f"{form} " + " / ".join(f"{ms:.3f}" for ms in run["ms"]) + " ms" for form, run in runs.items()),
+              flush=True)
+    # bench's graph at Config() on its pair 0, as phase 13 ran it: the same bits
+    config = mt.Config()
+    t_pair, r_pair = (torch.from_numpy(x).to(device) for x in make_pair(FULL_SECONDS, SR, 42))
+    scale = torch.tensor(1.0, device=device)
+    result = mt.master_graph(t_pair * (1.0 + 1e-7 * scale), r_pair, config, need_default=True,
+                             interp_ops=smoothing.operator_arrays_for_config(config)).result
+    checksum = float(torch.sum(torch.abs(result)))
+    require(checksum == bench_checksum, f"phase 16: bench's checksum {checksum!r}, phase 13 {bench_checksum!r}")
+    numbers["bench_checksum"] = checksum
+    numbers["bench_checksum_equals_recorded"] = checksum == BENCH_CHECKSUM_RECORDED
+    numbers["seconds"] = time.perf_counter() - start
+    print(f"phase 16: bench's checksum {checksum!r} (recorded {BENCH_CHECKSUM_RECORDED!r}), "
+          f"{numbers['seconds']:.2f} s", flush=True)
+    return numbers
+
+
 def main() -> None:
     script_start = time.perf_counter()
     try:
@@ -2478,8 +2605,6 @@ def main() -> None:
     codecs = codecs_path(mt, torch, run_process, (target_path, reference_path, out_path))
     print(json.dumps({"codecs_path": codecs}), flush=True)
     workdir.cleanup()
-    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matchering_tpu")]
-    require(not leaked, f"the port imported {leaked} on its way")
 
     # --- 12. the public op library on the card: the scans on K2, the FFT ops ---
     public = public_ops_path(torch, device, cuda_ms, release)
@@ -2518,9 +2643,19 @@ def main() -> None:
             if isinstance(run, dict) and "k1" in run
         }
 
-    # --- 16. results ---
+    # --- 16. the smoothing forms on the configs that broke, at full width ---
+    walk = config_walk_path(mt, torch, device, cuda_ms, card, entry["bench_graph"]["checksum"])
+    print(json.dumps({"config_walk_path": walk}), flush=True)
+    for index, numbers in enumerate((k1, k2, k3)):
+        numbers["launches_config_walk"] = {name: run["expected_launches"][index]
+                                           for name, run in walk["configs"].items()}
+
+    # --- 17. results ---
+    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matchering_tpu")]
+    require(not leaked, f"the port imported {leaked} on its way")
     print(json.dumps({"script_seconds": time.perf_counter() - script_start,
-                      "drivers_path_seconds": drivers["seconds"]}), flush=True)
+                      "drivers_path_seconds": drivers["seconds"],
+                      "config_walk_path_seconds": walk["seconds"]}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({
         "ok": True,

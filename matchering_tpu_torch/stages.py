@@ -169,9 +169,10 @@ def master_graph(
     cache (``state.operators_for_config``: the two operators in the
     working dtype, and the LOWESS plan where it does not fold into them);
     a ``smoothing.Smoothing`` is used as it is; a (to_log, to_lin) pair,
-    as ``smoothing.operator_arrays_for_config`` gives it, gets the staged
-    LOWESS plan of ``config`` beside it where it is not folded
-    (``smoothing.as_smoothing``).  With ``lowess_it > 0`` the robustness
+    the port's ``smoothing.operator_arrays_for_config`` or the JAX
+    package's, gets the staged LOWESS plan of ``config`` beside it where
+    it is not folded (``smoothing.as_smoothing``): every form runs the
+    LOWESS once.  With ``lowess_it > 0`` the robustness
     iterations run here too, still with no host sync (the median comes
     from a device sort).
 
@@ -202,6 +203,7 @@ def master_graph(
             smoothing.lowess_parameters(config),
             dtype,
             target.device,
+            rates=smoothing.grid_rates(config),
         )
     target = basics.to_working_float(target, dtype)
     reference = basics.to_working_float(reference, dtype)

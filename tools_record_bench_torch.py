@@ -177,7 +177,8 @@ def _stages(config, interp_ops):
 
     def analysis_and_fir(target, reference):
         operators = smoothing.as_smoothing(
-            interp_ops, config.log_grid_size, smoothing.lowess_parameters(config), dtype, target.device
+            interp_ops, config.log_grid_size, smoothing.lowess_parameters(config), dtype, target.device,
+            rates=smoothing.grid_rates(config),
         )
         target = basics.to_working_float(target[None], dtype)
         reference = basics.to_working_float(reference[None], dtype)
