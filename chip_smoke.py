@@ -186,12 +186,30 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    float64 ``master``; then bench's graph at ``Config()`` on its pair 0,
    bit for bit phase 13's checksum; no call of a kernel's plain twin
    allowed;
-17. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+17. the input walk (``tests/test_torch_input_walk.py``'s classes) at full
+   width: ten result-bearing classes written at 180 s from a seed (a mono
+   target, one silent channel, R = -L, a DC offset, -80 dBFS PCM_24
+   noise, a PCM_24 WAV target, a PCM_24 FLAC target, a FLOAT WAV target
+   over full scale, a mono reference, a 48 kHz PCM_24 reference), each
+   through ``process()`` on the card once untimed and three times timed
+   (host clock around a synchronise), with (1, 4, 0) launches a call, the
+   equality check on the card and no call of a kernel's plain twin, and
+   once on the CPU: the same info and warning codes; the mono target's
+   side exactly 0; on a 30 s excerpt of each class, the card's PCM_16
+   file within one step of the CPU's float64 ``master`` exported at
+   PCM_16 and the card's float32 ``master`` >= 95 dB against it (R = -L:
+   each RMS-correction step ``reference_match_rms / min_value``, 1e-6
+   relative in float32, 1e-12 on the CPU in float64); then
+   ``process_batch`` on the mono target (180 s) and a 150 s DC-offset
+   target, both dispatches, launches (2, 8, 0) pipelined and (1, 4, 0)
+   vmapped, each row within one step of its ``process()`` file;
+18. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
    kernel's batched numbers from phases 3, 7 and 8, its launches in one
    sharded ``limit()`` (phase 9), per process of phase 10's full-width
    run, per call of phase 13, per round, run and call of phase 14, per
-   call of phase 15 and of each config of phase 16 and, for K2, per
-   public scan of phase 12,
+   call of phase 15, of each config of phase 16 and of phase 17's
+   ``process()`` and farm batches and, for K2, per public scan of phase
+   12,
    and each launch's registers, shared
    memory and resident blocks per SM from the kernels' info queries,
    beside the grid its wrapper recorded for the timed launches), then,
@@ -2205,6 +2223,220 @@ def config_walk_path(mt, torch, device, cuda_ms, card, bench_checksum):
     return numbers
 
 
+# phase 17: the input walk's result-bearing classes (tests/test_torch_input_walk.py) at full width
+WALK_CALLS = 3  # warm process() calls timed per class, after one untimed
+WALK_FARM_SECONDS = (180, 150)  # the mixed farm batch: the mono target and a shorter DC-offset target
+WALK_ALGEBRA_RTOL_F32 = 1e-6  # R = -L: each RMS-correction step against reference_match_rms / min_value
+
+
+def walk_pair(seconds, sr, seed):
+    """The input walk's pair (``tests/test_torch_input_walk.py``'s
+    ``_base``) at ``seconds`` and ``sr``: a target of 1/f-like noise, its
+    channels distinct, and bench.py's square-wave reference with noise,
+    under bench.py's slow envelope."""
+    from scipy import signal
+
+    rng = np.random.RandomState(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    env = (0.6 + 0.4 * np.sin(2 * np.pi * t * 0.25) ** 2)[:, None]
+    target = 0.02 * signal.lfilter([1.0], [1.0, -0.97], rng.randn(n, 2), axis=0) * env
+    square = 0.7 * np.sign(np.sin(2 * np.pi * 110 * t))[:, None]
+    reference = (square + 0.05 * rng.randn(n, 2)) * env
+    return target, reference
+
+
+def walk_classes(seconds):
+    """The walk's result-bearing classes that phase 17 runs, at
+    ``seconds``: name -> ((target array, rate, extension, subtype),
+    (reference ...)), from one seed."""
+    target, reference = walk_pair(seconds, SR, SEED + 17)
+    reference_48k = walk_pair(seconds, USER_RATE, SEED + 18)[1]
+    noise = 1e-4 * np.random.RandomState(SEED + 19).randn(*target.shape)  # -80 dBFS
+
+    def wav16(x):
+        return (x, SR, "wav", "PCM_16")
+
+    return {
+        "mono target": (wav16(target[:, :1]), wav16(reference)),
+        "one silent channel target": (wav16(target * [1.0, 0.0]), wav16(reference)),
+        "R = -L target": (wav16(np.stack([target[:, 0], -target[:, 0]], axis=1)), wav16(reference)),
+        "DC offset target": (wav16(target + 0.4), wav16(reference)),
+        "-80 dBFS noise target": ((noise, SR, "wav", "PCM_24"), wav16(reference)),
+        "PCM_24 WAV target": ((target, SR, "wav", "PCM_24"), wav16(reference)),
+        "FLAC target": ((target, SR, "flac", "PCM_24"), wav16(reference)),
+        "float over full scale target": ((4.0 * target, SR, "wav", "FLOAT"), wav16(reference)),
+        "mono reference": (wav16(target), wav16(reference[:, :1])),
+        "48 kHz PCM_24 reference": (wav16(target), (reference_48k, USER_RATE, "wav", "PCM_24")),
+    }
+
+
+def input_walk_path(mt, torch, device, card):
+    """Phase 17: the input walk on the card (see the module's docstring).
+    ``card``: the card's name and power limit from ``nvidia-smi``, stamped
+    on the times.  Returns the phase's numbers; fails on any mismatch, and
+    on any call of a kernel's plain twin on the card."""
+    from matchering_tpu_torch.io import codecs
+
+    start = time.perf_counter()
+    config = mt.Config()
+    expected = expected_launches(config)
+    folder = tempfile.TemporaryDirectory(prefix="chip_smoke_walk_")
+
+    def at(name):
+        return os.path.join(folder.name, name)
+
+    def write(spec, path):
+        array, rate, ext, subtype = spec
+        path = f"{path}.{ext}"
+        codecs.write(path, array, rate, subtype)
+        return path
+
+    def pcm16_codes(path):
+        audio, rate = codecs.read(path, raw_int=True)
+        require(rate == SR and audio.dtype == np.int16, f"{path} is {audio.dtype} at {rate} Hz")
+        return audio
+
+    def lsb_apart(a, b):
+        require(a.shape == b.shape, f"the files hold {a.shape} and {b.shape} samples")
+        return int(np.max(np.abs(a.astype(np.int32) - b.astype(np.int32))))
+
+    def processed(label, paths, out, on_card=True):
+        """One ``process()`` call: the info and warning codes it logged and
+        its wall time; on the card with its launches counted from 0, none of
+        a plain twin, and the equality check on the card."""
+        codes = []
+
+        def record(message):
+            codes.append(int(str(message).split(":")[0]))
+
+        mt.log(info_handler=record, warning_handler=record, show_codes=True)
+        zero_launches()
+        EQUALITY_INPUTS.clear()
+        try:
+            if on_card:
+                with plain_twins_forbidden(f"phase 17 {label}"):
+                    torch.cuda.synchronize()
+                    begin = time.perf_counter()
+                    mt.process(*paths, [mt.pcm16(out)], config, device=device)
+                    torch.cuda.synchronize()
+            else:
+                begin = time.perf_counter()
+                mt.process(*paths, [mt.pcm16(out)], config, device="cpu")
+        finally:
+            mt.log()
+        wall = time.perf_counter() - begin
+        if on_card:
+            launches = launch_counts()
+            require(launches == expected, f"phase 17 {label} launched (K1, K2, K3) {launches}, not {expected}")
+            require_equality_on_card(f"phase 17 {label}", 1)
+        return codes, wall
+
+    def staged(paths, where):
+        """The pair as ``process()`` hands it to the graph, on ``where``."""
+        mt.log()
+        return [mt.check(*mt.load(path, role, raw_int=True), config, role, device=where)[0]
+                for path, role in zip(paths, ("target", "reference"))]
+
+    numbers = {"card": card, "seconds": FULL_SECONDS, "excerpt_seconds": SNR_SECONDS, "gate_db": SNR_GATE_DB,
+               "expected_launches": list(expected), "classes": {}}
+    full = walk_classes(FULL_SECONDS)
+    excerpt = {name: [(array[:SNR_SECONDS * rate], rate, ext, subtype) for array, rate, ext, subtype in specs]
+               for name, specs in full.items()}
+    card_files = {}
+    for index, (name, specs) in enumerate(full.items()):
+        row = {}
+        paths = [write(spec, at(f"c{index}_{role}")) for spec, role in zip(specs, ("t", "r"))]
+        out = at(f"c{index}_card.wav")
+        processed(f"{name} (untimed)", paths, out)
+        walls = []
+        for call in range(WALK_CALLS):
+            codes, wall = processed(f"{name} call {call + 1}", paths, out)
+            walls.append(wall)
+        cpu_codes, cpu_wall = processed(f"{name} on the CPU", paths, at(f"c{index}_cpu.wav"), on_card=False)
+        require(codes == cpu_codes, f"phase 17 {name}: the card's events {codes}, the CPU's {cpu_codes}")
+        result = pcm16_codes(out)
+        require(result.shape == (FULL_N, 2), f"phase 17 {name}: the card wrote {result.shape} samples")
+        card_files[name] = (paths, out)
+        mono_target = specs[0][0].shape[1] == 1
+        row.update(codes=codes, k1_k2_k3_per_call=list(expected), walls_s=walls, cpu_wall_s=cpu_wall)
+        if mono_target:  # doubled by the checker: the side is exactly 0
+            side = np.abs(result[:, 0].astype(np.int32) - result[:, 1].astype(np.int32)) / 2 / 32768
+            row["side_peak"] = float(side.max())
+            require(row["side_peak"] == 0.0, f"phase 17 {name}: the card's side peaks at {row['side_peak']}")
+
+        # the 30 s excerpt: the card's file against the CPU's float64 master exported at PCM_16
+        short = [write(spec, at(f"e{index}_{role}")) for spec, role in zip(excerpt[name], ("t", "r"))]
+        short_out = at(f"e{index}_card.wav")
+        processed(f"{name} excerpt", short, short_out)
+        cpu64 = mt.master(*staged(short, "cpu"), mt.Config(dtype="float64"), device="cpu")
+        with plain_twins_forbidden(f"phase 17 {name} excerpt master"):
+            card32 = mt.master(*staged(short, device), config, device=device)
+        if name == "R = -L target":
+            # the reference's algebra where the mid is exactly 0
+            for label, report, rtol in (("card float32", card32.report, WALK_ALGEBRA_RTOL_F32),
+                                        ("CPU float64", cpu64.report, 1e-12)):
+                want = float(report["reference_match_rms"]) / config.min_value
+                steps = [float(report[f"rms_correction_{k + 1}"]) for k in range(config.rms_correction_steps)]
+                require(all(abs(step - want) <= rtol * want for step in steps),
+                        f"phase 17 {name}: {label} steps {steps}, not {want}")
+                row[f"rms_steps_{label.replace(' ', '_')}"] = steps
+            row["algebra_value"] = float(cpu64.report["reference_match_rms"]) / config.min_value
+        else:
+            measured = snr_db(cpu64.result.numpy(), card32.result.cpu().double().numpy())
+            require(measured >= SNR_GATE_DB, f"phase 17 {name}: card float32 at {measured} dB < {SNR_GATE_DB} dB")
+            export = at(f"e{index}_cpu64.wav")
+            codecs.write(export, cpu64.result.numpy(), SR, "PCM_16")
+            lsb = lsb_apart(pcm16_codes(short_out), pcm16_codes(export))
+            require(lsb <= 1, f"phase 17 {name}: the card's file is {lsb} steps from the CPU's float64 master")
+            row.update(snr_db_vs_cpu_f64=measured, lsb_vs_cpu_f64=lsb)
+        if mono_target:
+            require(bool(torch.equal(card32.result[:, 0], card32.result[:, 1])),
+                    f"phase 17 {name}: the card's float32 master has a side")
+        del cpu64, card32
+        numbers["classes"][name] = row
+        print(f"phase 17 {name}: events equal the CPU's ({len(codes)} codes), (K1, K2, K3) {expected} a call, "
+              f"warm walls " + " / ".join(f"{w:.4f}" for w in walls) + f" s (CPU {cpu_wall:.2f} s), "
+              + (f"{row['snr_db_vs_cpu_f64']:.2f} dB and {row['lsb_vs_cpu_f64']} LSB vs the CPU's float64 master"
+                 if "snr_db_vs_cpu_f64" in row else f"RMS steps at {row['algebra_value']:.2f} (the algebra)")
+              + (f", side peak {row['side_peak']}" if mono_target else "") + f", on {card}", flush=True)
+
+    # the farm: the mono target beside a shorter DC-offset target, both dispatches
+    target = walk_pair(WALK_FARM_SECONDS[1], SR, SEED + 17)[0]
+    dc_paths = [write((target + 0.4, SR, "wav", "PCM_16"), at("farm_t")), card_files["mono target"][0][1]]
+    dc_out = at("farm_dc_card.wav")
+    processed("farm job 1 alone", dc_paths, dc_out)
+    jobs = [(card_files["mono target"][0], card_files["mono target"][1]), (dc_paths, dc_out)]
+    numbers["farm"] = {"target_seconds": list(WALK_FARM_SECONDS)}
+    for dispatch, launches_expected in (("pipelined", (2, 8, 0)), ("vmapped", (1, 4, 0))):
+        outs = [at(f"farm_{dispatch}_{i}.wav") for i in range(len(jobs))]
+        zero_launches()
+        EQUALITY_INPUTS.clear()
+        with plain_twins_forbidden(f"phase 17 farm {dispatch}"):
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            mt.process_batch([mt.PairJob(*paths, [mt.pcm16(o)]) for (paths, _), o in zip(jobs, outs)], config,
+                             dispatch=dispatch, device=device)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - begin
+        launches = launch_counts()
+        require(launches == launches_expected,
+                f"phase 17 farm {dispatch} launched (K1, K2, K3) {launches}, not {launches_expected}")
+        require_equality_on_card(f"phase 17 farm {dispatch}", len(jobs))
+        lsbs = [lsb_apart(pcm16_codes(o), pcm16_codes(single)) for o, (_, single) in zip(outs, jobs)]
+        require(max(lsbs) <= 1, f"phase 17 farm {dispatch}: rows {lsbs} steps from their process() files")
+        mono = pcm16_codes(outs[0])
+        require(bool(np.array_equal(mono[:, 0], mono[:, 1])), f"phase 17 farm {dispatch}: the mono row has a side")
+        numbers["farm"][dispatch] = {"wall_s": wall, "k1": launches[0], "k2": launches[1], "k3": launches[2],
+                                     "lsb_vs_process": lsbs}
+        print(f"phase 17 farm {dispatch}: {wall:.4f} s, (K1, K2, K3) {launches}, rows {lsbs} LSB from "
+              f"process(), on {card}", flush=True)
+    folder.cleanup()
+    numbers["seconds"] = time.perf_counter() - start
+    print(f"phase 17: {numbers['seconds']:.2f} s on {card}", flush=True)
+    return numbers
+
+
 def main() -> None:
     script_start = time.perf_counter()
     try:
@@ -2350,7 +2582,7 @@ def main() -> None:
         "name": "limiter_front_end",
         "route": "cuda",
         "source": "matchering_tpu_torch/csrc/envelope.cu",
-        "replaces": "matchering_tpu/ops/pallas_envelope.py:115",
+        "replaces": "matchering_tpu/ops/pallas_envelope.py:116",
         "max_abs_err": k1_err,
         "tolerance": 0.0,
         "ms": cuda_ms(lambda: envelope.limiter_front_end(stereo, config.threshold, attack), 20),
@@ -2650,12 +2882,23 @@ def main() -> None:
         numbers["launches_config_walk"] = {name: run["expected_launches"][index]
                                            for name, run in walk["configs"].items()}
 
-    # --- 17. results ---
+    # --- 17. the input walk: the classes users send, at full width ---
+    walk_inputs = input_walk_path(mt, torch, device, card)
+    print(json.dumps({"input_walk_path": walk_inputs}), flush=True)
+    for index, numbers in enumerate((k1, k2, k3)):
+        numbers["launches_input_walk"] = {
+            "process_per_call": walk_inputs["expected_launches"][index],
+            **{f"farm_{dispatch}": walk_inputs["farm"][dispatch][("k1", "k2", "k3")[index]]
+               for dispatch in ("pipelined", "vmapped")},
+        }
+
+    # --- 18. results ---
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matchering_tpu")]
     require(not leaked, f"the port imported {leaked} on its way")
     print(json.dumps({"script_seconds": time.perf_counter() - script_start,
                       "drivers_path_seconds": drivers["seconds"],
-                      "config_walk_path_seconds": walk["seconds"]}), flush=True)
+                      "config_walk_path_seconds": walk["seconds"],
+                      "input_walk_path_seconds": walk_inputs["seconds"]}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({
         "ok": True,
