@@ -203,7 +203,19 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    ``process_batch`` on the mono target (180 s) and a 150 s DC-offset
    target, both dispatches, launches (2, 8, 0) pipelined and (1, 4, 0)
    vmapped, each row within one step of its ``process()`` file;
-18. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+18. the port's spans and counters (``matchering_tpu_torch.trace``): one
+   ``process()`` of a 240 s target against a 300 s reference (PCM_16 WAV,
+   ``Config()``) under ``trace.recording()``, with
+   ``torch.cuda.set_sync_debug_mode("warn")`` and :func:`copy_counter`
+   watching: one root, the ``host_reads`` it counts equal to the syncs the
+   mode reports, its ``h2d_bytes`` and ``d2h_bytes`` equal to the copy
+   counter's, and its ``load``, ``check``, ``equality``, ``graph``,
+   ``fetch`` and ``encode`` spans >= 95 % of its wall time; one recorded
+   ``master()`` of a 60-min 96 kHz target against a 200 s reference built
+   on the card, whose five stage spans' device times are >= 97 % of its
+   ``master`` span's; and the cost of recording, calls of both with
+   recording off and on in turns (three runs of five calls each);
+19. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
    kernel's batched numbers from phases 3, 7 and 8, its launches in one
    sharded ``limit()`` (phase 9), per process of phase 10's full-width
    run, per call of phase 13, per round, run and call of phase 14, per
@@ -294,17 +306,28 @@ def launch_numbers(query: str, *args, grid: int) -> dict:
     return {**dict(zip(keys, (int(v) for v in out))), "grid": grid}
 
 
+COUNTS_FROM = {}  # the port's counters (``trace.counts()``) at the last zero_counts()
+
+
+def zero_counts() -> None:
+    """Count the port's counters (kernel launches, host reads, bytes
+    copied) from 0 here."""
+    from matchering_tpu_torch import trace
+
+    COUNTS_FROM.clear()
+    COUNTS_FROM.update(trace.counts())
+
+
+def count_since(name: str) -> int:
+    """The port's counter ``name`` (``trace``) since the last zero_counts()."""
+    from matchering_tpu_torch import trace
+
+    return trace.counts().get(name, 0) - COUNTS_FROM.get(name, 0)
+
+
 def launch_counts():
-    """The kernels' (K1, K2, K3) launch counters."""
-    from matchering_tpu_torch.kernels import envelope, scan, sos
-
-    return envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES
-
-
-def zero_launches() -> None:
-    from matchering_tpu_torch.kernels import envelope, scan, sos
-
-    envelope.LAUNCHES = scan.LAUNCHES = sos.LAUNCHES = 0
+    """The kernels' (K1, K2, K3) launches since the last zero_counts()."""
+    return tuple(count_since(f"launch.k{i}") for i in (1, 2, 3))
 
 
 @contextlib.contextmanager
@@ -748,7 +771,6 @@ def farm_path(mt, torch, device, config, recorder, tmp):
     any mismatch."""
     from matchering_tpu_torch import stages, state
     from matchering_tpu_torch.io import wav
-    from matchering_tpu_torch.kernels import envelope, scan, sos
     from matchering_tpu_torch.parallel import batch
     from matchering_tpu_torch.utils import RowInts
 
@@ -787,9 +809,7 @@ def farm_path(mt, torch, device, config, recorder, tmp):
         for label in ("cold", "warm"):
             events = []
             recorder(events)
-            envelope.LAUNCHES = 0
-            scan.LAUNCHES = 0
-            sos.LAUNCHES = 0
+            zero_counts()
             EQUALITY_INPUTS.clear()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -800,7 +820,7 @@ def farm_path(mt, torch, device, config, recorder, tmp):
             finally:
                 mt.log()
             wall = time.perf_counter() - start
-            launches = (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
+            launches = launch_counts()
             require(launches == expected[dispatch],
                     f"{dispatch} {label} process_batch launched K1, K2 and K3 {launches} times, "
                     f"not {expected[dispatch]}")
@@ -959,13 +979,12 @@ def timeshard_path(mt, torch, device, config, here, cuda_ms, phase4):
     ``process()`` output.  Returns the phase's numbers and the (K1, K2,
     K3) launches of one sharded ``limit()``; fails on any mismatch."""
     from matchering_tpu_torch.io import wav
-    from matchering_tpu_torch.kernels import envelope, scan, sos
     from matchering_tpu_torch.parallel import batch, mesh, timeshard
 
     def counted(fn):
-        envelope.LAUNCHES = scan.LAUNCHES = sos.LAUNCHES = 0
+        zero_counts()
         out = fn()
-        return out, (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
+        return out, launch_counts()
 
     def timed(fn):
         """``fn()`` with the wall time and the peak device memory of the
@@ -1289,13 +1308,14 @@ def configs_path(mt, torch, device, cuda_ms, kernel_ms, run_process, bandwidth):
         mt.master(target_pcm, reference_pcm, config, device=device)
 
         def profiled_master():
-            sos.LAUNCHES = 0
+            zero_counts()
             mt.master(target_pcm, reference_pcm, config, device=device)
 
         master_ms, ops = profile_device(torch, profiled_master)
         sos_kernels = sum(o["calls"] for o in ops if "sos_scan_kernel" in o["op"])
-        require(sos_kernels == sos.LAUNCHES == expected[2],
-                f"master() made {sos.LAUNCHES} K3 calls but the profile shows {sos_kernels} sos_scan kernels")
+        k3_calls = launch_counts()[2]
+        require(sos_kernels == k3_calls == expected[2],
+                f"master() made {k3_calls} K3 calls but the profile shows {sos_kernels} sos_scan kernels")
         device_ms = sum(o["device_ms"] for o in ops)
         numbers["master_profiled"] = {"wall_ms": master_ms, "device_ms": device_ms,
                                       "device_busy_share": device_ms / master_ms, "k3_kernels": sos_kernels,
@@ -1393,7 +1413,7 @@ def distributed_worker(argv) -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import matchering_tpu_torch as mt
-    from matchering_tpu_torch.kernels import build, envelope, scan, sos
+    from matchering_tpu_torch.kernels import build
     from matchering_tpu_torch.parallel import batch, launch
 
     parser = argparse.ArgumentParser()
@@ -1412,7 +1432,7 @@ def distributed_worker(argv) -> None:
         start, stop = launch.local_pair_slice(mesh, FARM_JOBS)
         runs = []
         for label in ("cold", "warm"):
-            envelope.LAUNCHES = scan.LAUNCHES = sos.LAUNCHES = 0
+            zero_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             begin = time.perf_counter()
@@ -1432,10 +1452,11 @@ def distributed_worker(argv) -> None:
                         SR, "PCM_16")
             torch.cuda.synchronize()
             wall = time.perf_counter() - begin
+            launches = launch_counts()
             runs.append({
                 "run": label, "wall_s": wall, "pairs_per_s": (stop - start) / wall,
                 "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-                "k1": envelope.LAUNCHES, "k2": scan.LAUNCHES, "k3": sos.LAUNCHES,
+                "k1": launches[0], "k2": launches[1], "k3": launches[2],
                 "buckets": buckets, "bucket_shapes": [list(t_batch.shape), list(r_batch.shape)],
             })
             del t_batch, r_batch, out, tracks
@@ -1674,7 +1695,7 @@ def public_ops_path(torch, device, cuda_ms, release):
     def counted(label, fn, expected):
         """``fn()`` with K2's launches counted from 0; a call of the plain
         twin inside it fails the phase."""
-        scan.LAUNCHES = 0
+        zero_counts()
         twin_calls.clear()
         scan.first_order_filter_plain = spy
         try:
@@ -1683,7 +1704,8 @@ def public_ops_path(torch, device, cuda_ms, release):
         finally:
             scan.first_order_filter_plain = real_twin
         require(not twin_calls, f"{label} ran K2's plain twin on the card")
-        require(scan.LAUNCHES == expected, f"{label} launched K2 {scan.LAUNCHES} times, not {expected}")
+        k2_calls = launch_counts()[1]
+        require(k2_calls == expected, f"{label} launched K2 {k2_calls} times, not {expected}")
         return out
 
     def twin(fn):
@@ -1807,7 +1829,7 @@ def entry_path(mt, torch, device):
         time; a call of a plain twin fails the phase."""
         fn()
         torch.cuda.synchronize()
-        zero_launches()
+        zero_counts()
         with plain_twins_forbidden(label):
             start = time.perf_counter()
             out = fn()
@@ -1907,13 +1929,13 @@ def drivers_path(mt, torch, device, bench_checksum):
         start = time.perf_counter()
         driver = bench_torch.Bench(host_pairs, bench_torch.SECONDS, device=device)
         staging_s = time.perf_counter() - start
-        zero_launches()
+        zero_counts()
         throughput, rows = bench_torch.measure(driver, bench_torch.REPS)
         run_launches = launch_counts()
         graphs = (2 + 2 * bench_torch.REPS) * bench_torch.B + bench_torch.REPS
         require(run_launches == times(graphs),
                 f"bench_torch's run launched {run_launches}, not {times(graphs)} ({graphs} graphs)")
-        zero_launches()
+        zero_counts()
         driver.run(7)
         round_launches = launch_counts()
         require(round_launches == times(bench_torch.B),
@@ -1975,7 +1997,7 @@ def drivers_path(mt, torch, device, bench_checksum):
              len(record.SWEEP_SIZES) * record.VARIANTS),
         ):
             torch.cuda.reset_peak_memory_stats(device)
-            zero_launches()
+            zero_counts()
             start = time.perf_counter()
             result = fn()
             launches = launch_counts()
@@ -1990,7 +2012,7 @@ def drivers_path(mt, torch, device, bench_checksum):
 
         available = host_available_bytes()
         if available >= record.LONGFORM_HOST_BYTES:
-            zero_launches()
+            zero_counts()
             start = time.perf_counter()
             longform = record.bench_longform(device=device)
             launches = launch_counts()
@@ -2016,7 +2038,6 @@ def jax_forms_path(mt, torch, device, cuda_ms, card):
     and power limit from ``nvidia-smi``, stamped on the times.  Returns the
     phase's numbers; fails on any mismatch, and on any call of a kernel's
     plain twin."""
-    from matchering_tpu_torch import utils
     from matchering_tpu_torch.utils import RowInts
 
     config = mt.Config()
@@ -2038,13 +2059,12 @@ def jax_forms_path(mt, torch, device, cuda_ms, card):
         """``fn()`` once with its launches and host reads counted from 0 and
         its host-device copies traced (``transfer_bytes``), under
         ``plain_twins_forbidden``: (output, numbers)."""
-        zero_launches()
-        utils.HOST_READS = 0
+        zero_counts()
         with plain_twins_forbidden(f"phase 15 {label}"):
             out = fn()
             torch.cuda.synchronize()
             launches = launch_counts()
-            host_reads = utils.HOST_READS
+            host_reads = count_since("host_reads")
             copies = transfer_bytes(torch, fn)
         require(launches == expected, f"{label} launched (K1, K2, K3) {launches}, not {expected}")
         require(host_reads == reads, f"{label} read {host_reads} lengths back from the card, not {reads}")
@@ -2143,7 +2163,7 @@ def config_walk_path(mt, torch, device, cuda_ms, card, bench_checksum):
     and power limit from ``nvidia-smi``, stamped on the times;
     ``bench_checksum``: phase 13's.  Returns the phase's numbers; fails on
     any mismatch, and on any call of a kernel's plain twin."""
-    from matchering_tpu_torch import state, utils
+    from matchering_tpu_torch import state
     from matchering_tpu_torch.ops import smoothing
 
     start = time.perf_counter()
@@ -2172,18 +2192,17 @@ def config_walk_path(mt, torch, device, cuda_ms, card, bench_checksum):
         torch.cuda.synchronize()
         outputs, runs = {}, {}
         for form, fn in forms.items():
-            zero_launches()
-            utils.HOST_READS = 0
+            zero_counts()
             moved = {"h2d_bytes": 0, "h2d_copies": 0, "d2h_bytes": 0, "d2h_copies": 0}
             with plain_twins_forbidden(f"phase 16 {name} {form}"):
                 with copy_counter(torch, moved):
                     outputs[form] = fn()
                 torch.cuda.synchronize()
-            launches = launch_counts()
+            launches, host_reads = launch_counts(), count_since("host_reads")
             require(launches == expected, f"phase 16 {name} {form} launched (K1, K2, K3) {launches}, not {expected}")
-            require(utils.HOST_READS == 0 and moved["d2h_copies"] == 0,
-                    f"phase 16 {name} {form} read the card back: {utils.HOST_READS} host reads, {moved}")
-            runs[form] = {"k1": launches[0], "k2": launches[1], "k3": launches[2], "host_reads": utils.HOST_READS,
+            require(host_reads == 0 and moved["d2h_copies"] == 0,
+                    f"phase 16 {name} {form} read the card back: {host_reads} host reads, {moved}")
+            runs[form] = {"k1": launches[0], "k2": launches[1], "k3": launches[2], "host_reads": host_reads,
                           "d2h_copies": moved["d2h_copies"], "h2d_copies": moved["h2d_copies"], "ms": []}
         first = outputs["master()"]
         require(bool(torch.isfinite(first).all()), f"phase 16 {name}: non-finite values")
@@ -2311,7 +2330,7 @@ def input_walk_path(mt, torch, device, card):
             codes.append(int(str(message).split(":")[0]))
 
         mt.log(info_handler=record, warning_handler=record, show_codes=True)
-        zero_launches()
+        zero_counts()
         EQUALITY_INPUTS.clear()
         try:
             if on_card:
@@ -2410,7 +2429,7 @@ def input_walk_path(mt, torch, device, card):
     numbers["farm"] = {"target_seconds": list(WALK_FARM_SECONDS)}
     for dispatch, launches_expected in (("pipelined", (2, 8, 0)), ("vmapped", (1, 4, 0))):
         outs = [at(f"farm_{dispatch}_{i}.wav") for i in range(len(jobs))]
-        zero_launches()
+        zero_counts()
         EQUALITY_INPUTS.clear()
         with plain_twins_forbidden(f"phase 17 farm {dispatch}"):
             torch.cuda.synchronize()
@@ -2434,6 +2453,126 @@ def input_walk_path(mt, torch, device, card):
     folder.cleanup()
     numbers["seconds"] = time.perf_counter() - start
     print(f"phase 17: {numbers['seconds']:.2f} s on {card}", flush=True)
+    return numbers
+
+
+
+# phase 18: a song pair of the benchmark's lengths, and the cost of recording spans
+TRACE_SECONDS = (240, 300)  # the target's and the reference's
+TRACE_RUNS = 3  # runs of each arm, in turns
+TRACE_CALLS = 5  # calls a run; its median is the run's
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def trace_path(mt, torch, device, card):
+    """Phase 18: the port's spans and counters (``trace``) on the card
+    (see the module's docstring).  ``card``: the card's name and power
+    limit from ``nvidia-smi``, stamped on the times.  Returns the phase's
+    numbers; fails on any mismatch."""
+    import warnings
+
+    from matchering_tpu_torch import trace
+    from matchering_tpu_torch.io import wav
+
+    start = time.perf_counter()
+    config = mt.Config()
+    host = ("load", "check", "equality", "graph", "fetch", "encode")
+    stages = ("levels", "spectra", "convolve", "correction", "finalize")
+    numbers = {"card": card, "song_seconds": list(TRACE_SECONDS), "long_seconds": LONG_SECONDS,
+               "long_rate": LONG_RATE}
+
+    def recorded(fn):
+        """``fn()`` once under ``trace.recording()``: its spans, the root first."""
+        trace.clear()
+        with trace.recording():
+            fn()
+        spans = trace.spans()
+        roots = [s for s in spans if s.parent is None]
+        require(len(roots) == 1 and len({s.call for s in spans}) == 1,
+                f"phase 18: one call gave {len(roots)} roots over {len({s.call for s in spans})} calls")
+        return roots + [s for s in spans if s.parent is not None]
+
+    def total_ms(spans, names):
+        return {name: sum(s.end_ns - s.start_ns for s in spans if s.name == name) * 1e-6 for name in names}
+
+    def in_turns(fn):
+        """Median wall ms of ``TRACE_CALLS`` calls a run, recording off and
+        on in turns, ``TRACE_RUNS`` runs each."""
+        arms = {"off": [], "on": []}
+        for _ in range(TRACE_RUNS):
+            for arm in arms:
+                walls = []
+                for _ in range(TRACE_CALLS):
+                    trace.clear()
+                    with trace.recording() if arm == "on" else contextlib.nullcontext():
+                        begin = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        walls.append(1e3 * (time.perf_counter() - begin))
+                arms[arm].append(float(np.median(walls)))
+        trace.clear()
+        return arms
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spans_") as tmp:
+        paths = [os.path.join(tmp, name) for name in ("target.wav", "reference.wav", "result.wav")]
+        wav.write(paths[0], make_pair(TRACE_SECONDS[0], SR, SEED + 18)[0], SR, "PCM_16")
+        wav.write(paths[1], make_pair(TRACE_SECONDS[1], SR, SEED + 19)[1], SR, "PCM_16")
+
+        def song():
+            mt.process(paths[0], paths[1], [mt.pcm16(paths[2])], config, device=device)
+
+        song()  # warm
+        moved = {"h2d_bytes": 0, "h2d_copies": 0, "d2h_bytes": 0, "d2h_copies": 0}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with copy_counter(torch, moved):
+                    spans = recorded(song)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+        root = spans[0]
+        counters = {k: root.counters.get(k, 0) for k in ("host_reads", "h2d_bytes", "d2h_bytes")}
+        require(counters["host_reads"] == syncs,
+                f"phase 18: process() counted {counters['host_reads']} host reads; the sync debug mode saw {syncs}")
+        for way in ("h2d_bytes", "d2h_bytes"):
+            require(counters[way] == moved[way],
+                    f"phase 18: process() counted {counters[way]} {way}; the copy counter saw {moved[way]}: {moved}")
+        root_ms = (root.end_ns - root.start_ns) * 1e-6
+        spans_ms = total_ms(spans, host + ("stage", "master") + stages)
+        covered = sum(spans_ms[name] for name in host) / root_ms
+        require(covered >= 0.95, f"phase 18: the host spans cover {covered:.4f} of process(): {spans_ms}")
+        numbers["song"] = {"names": [s.name for s in spans], "root_ms": root_ms, "spans_ms": spans_ms,
+                           "host_spans_cover": covered, "counters": counters, "syncs": syncs,
+                           "copy_counter": moved, "recording_ms": in_turns(song)}
+
+    target = card_track(torch, device, LONG_SECONDS, LONG_RATE, SEED + 20, "target")
+    reference = card_track(torch, device, LONG_REFERENCE_SECONDS, LONG_RATE, SEED + 21, "reference")
+
+    def long_form():
+        mt.master(target, reference, config, need_default=True, device=device)
+
+    long_form()  # warm
+    torch.cuda.synchronize()
+    spans = recorded(long_form)
+    torch.cuda.synchronize()
+    root = spans[0]
+    require([s.name for s in spans] == ["master", *stages] and all(s.parent == root.id for s in spans[1:]),
+            f"phase 18: master() recorded {[(s.name, s.parent) for s in spans]}")
+    device_ms = {s.name: s.device_ms for s in spans}
+    covered = sum(device_ms[name] for name in stages) / device_ms["master"]
+    require(covered >= 0.97, f"phase 18: the graph's stages cover {covered:.4f} of master()'s device time: {device_ms}")
+    numbers["long_form"] = {"device_ms": device_ms, "stages_cover": covered,
+                            "host_ms": total_ms(spans, ("master",) + stages),
+                            "recording_ms": in_turns(long_form)}
+    del target, reference
+    numbers["seconds"] = time.perf_counter() - start
+    print(f"phase 18 on {card}: process() {counters}, {syncs} syncs, copies {moved}, host spans cover "
+          f"{numbers['song']['host_spans_cover']:.4f}; master() stages cover {covered:.4f} of its device time "
+          f"{device_ms}; recording off/on: process() {numbers['song']['recording_ms']}, "
+          f"master() {numbers['long_form']['recording_ms']} ms", flush=True)
     return numbers
 
 
@@ -2501,9 +2640,7 @@ def main() -> None:
             events.append((time.perf_counter(), " ".join(str(p) for p in parts)))
 
         mt.log(info_handler=record, warning_handler=record, debug_handler=record)
-        envelope.LAUNCHES = 0
-        scan.LAUNCHES = 0
-        sos.LAUNCHES = 0
+        zero_counts()
         EQUALITY_INPUTS.clear()
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -2513,7 +2650,7 @@ def main() -> None:
         finally:
             mt.log()
         wall = time.perf_counter() - start
-        launches = (envelope.LAUNCHES, scan.LAUNCHES, sos.LAUNCHES)
+        launches = launch_counts()
         runs.append({"run": label, "wall_s": wall, "k1": launches[0], "k2": launches[1], "k3": launches[2],
                      "equality_inputs": list(EQUALITY_INPUTS)})
         require(launches == tuple(expected),
@@ -2746,8 +2883,7 @@ def main() -> None:
     mt.master(target_pcm, reference_pcm, config, device="cuda")
     torch.cuda.synchronize()
     def profiled_master():
-        scan.LAUNCHES = 0
-        sos.LAUNCHES = 0
+        zero_counts()
         mt.master(target_pcm, reference_pcm, config, device="cuda")
 
     master_ms, ops = profile_device(torch, profiled_master)
@@ -2757,9 +2893,10 @@ def main() -> None:
     device_ms = sum(o["device_ms"] for o in ops)
     require(device_ms > 0, "the profiler saw no device time in master()")
     _, k2_expected, k3_expected = expected_launches(config)
+    _, k2_calls, k3_calls = launch_counts()
     require(
-        scan_kernels == scan.LAUNCHES == k2_expected and sos_kernels == sos.LAUNCHES == k3_expected,
-        f"master() made {scan.LAUNCHES} K2 and {sos.LAUNCHES} K3 calls but the profile shows "
+        scan_kernels == k2_calls == k2_expected and sos_kernels == k3_calls == k3_expected,
+        f"master() made {k2_calls} K2 and {k3_calls} K3 calls but the profile shows "
         f"{scan_kernels} scan and {sos_kernels} sos_scan kernels",
     )
     del target_pcm, reference_pcm
@@ -2778,7 +2915,7 @@ def main() -> None:
     print(json.dumps({
         "master_profiled": {
             "wall_ms": master_ms, "device_ms": device_ms, "device_busy_share": device_ms / master_ms,
-            "k2_calls": scan.LAUNCHES, "k2_kernels": scan_kernels, "k3_kernels": sos_kernels,
+            "k2_calls": k2_calls, "k2_kernels": scan_kernels, "k3_kernels": sos_kernels,
             "top_ops": top(ops, 15, 60),
         }
     }), flush=True)
@@ -2892,13 +3029,18 @@ def main() -> None:
                for dispatch in ("pipelined", "vmapped")},
         }
 
-    # --- 18. results ---
+    # --- 18. the port's spans and counters: one recorded call each, their cost ---
+    traced = trace_path(mt, torch, device, card)
+    print(json.dumps({"trace_path": traced}), flush=True)
+
+    # --- 19. results ---
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matchering_tpu")]
     require(not leaked, f"the port imported {leaked} on its way")
     print(json.dumps({"script_seconds": time.perf_counter() - script_start,
                       "drivers_path_seconds": drivers["seconds"],
                       "config_walk_path_seconds": walk["seconds"],
-                      "input_walk_path_seconds": walk_inputs["seconds"]}), flush=True)
+                      "input_walk_path_seconds": walk_inputs["seconds"],
+                      "trace_path_seconds": traced["seconds"]}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -20,10 +20,11 @@ from typing import Tuple
 
 import torch
 
+from . import trace
 from .config import Config
 from .log import Code, ModuleError, debug, info, warning
 from .ops import basics, resample
-from .utils import resolve_device, time_str, to_device
+from .utils import read_back, resolve_device, time_str, to_device
 
 
 @dataclass(frozen=True)
@@ -110,7 +111,7 @@ def _peak_heuristics(array: torch.Tensor, config: Config) -> None:
     """Advisory-only analysis of the peak population: many samples pinned at
     one maximum suggest clipping (at full scale) or an upstream limiter."""
     peak, pinned = basics.count_max_peaks(array)
-    peak, pinned = float(peak), int(pinned)
+    peak, pinned = float(read_back(peak)), int(read_back(pinned))
     if pinned <= config.clipping_samples_threshold:
         return
     at_full_scale = abs(peak - 1.0) <= 1e-8 + 1e-5  # np.isclose(peak, 1.0)
@@ -127,14 +128,15 @@ def check(
     stage it on ``device`` (``cuda`` unless named) as stereo, convert it to
     the internal rate there, and (for the TARGET) emit peak-population
     advisories from a count there.  Returns the staged tensor and its
-    rate."""
+    rate.  The span ``check``."""
     policy = _POLICIES[name.upper()]
     device = resolve_device(device)
-    _bound_length(array, sample_rate, config, policy)
-    staged = _to_stereo(array, policy, device)
-    staged, sample_rate = _to_internal_rate(staged, sample_rate, config, policy)
-    if policy.heuristics:
-        _peak_heuristics(staged, config)
+    with trace.span("check"):
+        _bound_length(array, sample_rate, config, policy)
+        staged = _to_stereo(array, policy, device)
+        staged, sample_rate = _to_internal_rate(staged, sample_rate, config, policy)
+        if policy.heuristics:
+            _peak_heuristics(staged, config)
     return staged, sample_rate
 
 
@@ -144,12 +146,15 @@ def check_equality(target, reference) -> None:
     ``np.allclose``'s tolerances, staged integer PCM in the float domain, so
     the same track as PCM_16 WAV and as FLAC is still equal.  They compare
     on the target's device where it is a tensor, else on the reference's,
-    else on the host."""
-    if tuple(target.shape) != tuple(reference.shape):
-        return
-    tensors = [a for a in (target, reference) if isinstance(a, torch.Tensor)]
-    device = tensors[0].device if tensors else torch.device("cpu")
-    if torch.allclose(
-        _as_float64(target, device), _as_float64(reference, device), rtol=1e-5, atol=1e-8
-    ):
-        raise ModuleError(Code.ERROR_TARGET_EQUALS_REFERENCE)
+    else on the host, and the verdict is read back once.  The span
+    ``equality``."""
+    with trace.span("equality"):
+        if tuple(target.shape) != tuple(reference.shape):
+            return
+        tensors = [a for a in (target, reference) if isinstance(a, torch.Tensor)]
+        device = tensors[0].device if tensors else torch.device("cpu")
+        close = torch.isclose(  # torch.allclose, its verdict counted as it is read
+            _as_float64(target, device), _as_float64(reference, device), rtol=1e-5, atol=1e-8
+        ).all()
+        if bool(read_back(close)):
+            raise ModuleError(Code.ERROR_TARGET_EQUALS_REFERENCE)

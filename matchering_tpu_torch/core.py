@@ -13,6 +13,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from . import trace
 from .checker import check, check_equality
 from .config import Config
 from .io import load, save
@@ -109,38 +110,40 @@ def process(
     """Master ``target`` against ``reference`` and write each of
     ``results``, and the loudest-section previews if asked.  Runs on
     ``device`` (``cuda`` unless named; raises if there is no card rather
-    than falling back to the CPU)."""
-    debug("matchering_tpu_torch — audio matching & mastering on PyTorch")
-    debug_line()
-    device = resolve_device(device)
-    info(Code.INFO_LOADING)
+    than falling back to the CPU).  The call's root span ``process``
+    (``trace``)."""
+    with trace.span("process"):
+        debug("matchering_tpu_torch — audio matching & mastering on PyTorch")
+        debug_line()
+        device = resolve_device(device)
+        info(Code.INFO_LOADING)
 
-    if isinstance(results, Result):
-        results = [results]
-    if not results:
-        raise RuntimeError("The result list is empty")
+        if isinstance(results, Result):
+            results = [results]
+        if not results:
+            raise RuntimeError("The result list is empty")
 
-    temp_folder = config.temp_folder or get_temp_folder(results)
+        temp_folder = config.temp_folder or get_temp_folder(results)
 
-    target_track = _ingest(target, "target", config, temp_folder, device)
-    reference_track = _ingest(reference, "reference", config, temp_folder, device)
+        target_track = _ingest(target, "target", config, temp_folder, device)
+        reference_track = _ingest(reference, "reference", config, temp_folder, device)
 
-    if not config.allow_equality:
-        check_equality(target_track[0], reference_track[0])
-    _assert_graph_ready((target_track, reference_track), config)
+        if not config.allow_equality:
+            check_equality(target_track[0], reference_track[0])
+        _assert_graph_ready((target_track, reference_track), config)
 
-    wanted = {_variant_key(r) for r in results}
-    variants = render_variants(target_track[0], reference_track[0], config, wanted, device=device)
+        wanted = {_variant_key(r) for r in results}
+        variants = render_variants(target_track[0], reference_track[0], config, wanted, device=device)
 
-    debug_line()
-    info(Code.INFO_EXPORTING)
-    _export(results, variants, config)
+        debug_line()
+        info(Code.INFO_EXPORTING)
+        _export(results, variants, config)
 
-    if preview_target or preview_result:
-        # any rendered variant serves as the preview source, preferring the
-        # limited one (reference ``core.py:112-118``)
-        source = next(variants[k] for k in ("limited", "raw", "normalized") if k in variants)
-        create_preview(target_track[0], source, config, preview_target, preview_result)
+        if preview_target or preview_result:
+            # any rendered variant serves as the preview source, preferring the
+            # limited one (reference ``core.py:112-118``)
+            source = next(variants[k] for k in ("limited", "raw", "normalized") if k in variants)
+            create_preview(target_track[0], source, config, preview_target, preview_result)
 
-    debug_line()
-    info(Code.INFO_COMPLETED)
+        debug_line()
+        info(Code.INFO_COMPLETED)

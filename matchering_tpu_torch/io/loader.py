@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..log import Code, ModuleError, debug, info, warning
 from ..utils import random_file
 from . import codecs
@@ -102,16 +103,18 @@ def load(
     where the ffmpeg fallback stages its WAV (the system's temporary folder
     if None).  ``raw_int=True`` keeps integer-PCM WAV payloads as unscaled
     int16/int32 codes: ``process()`` stages those to the device as they are
-    and converts there (``ops.basics.to_working_float``).
+    and converts there (``ops.basics.to_working_float``).  The span
+    ``load``.
     """
     role = file_type.upper()
     debug(f"Decoding the {role} track from '{file}'")
     folder = tempfile.gettempdir() if temp_folder is None else temp_folder
     decoded: Optional[Tuple[np.ndarray, int]] = None
-    for strategy in _DECODE_CHAIN:
-        decoded = strategy(file, role, folder, raw_int)
-        if decoded is not None:
-            break
+    with trace.span("load"):
+        for strategy in _DECODE_CHAIN:
+            decoded = strategy(file, role, folder, raw_int)
+            if decoded is not None:
+                break
     if decoded is None:
         _raise_load_error(role)
     debug(f"{role} decoded: {decoded[0].shape[0]} samples at {decoded[1]} Hz")

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import trace
 from ..log import debug
 from . import codecs
 
@@ -19,7 +20,9 @@ def save(
     subtype: str,
     name: str = "result",
 ) -> None:
+    """Write ``result`` to ``file``: the span ``encode``."""
     name = name.upper()
     debug(f"Saving the {name} {sample_rate} Hz Stereo {subtype} to: '{file}'...")
-    codecs.write(file, np.asarray(result), sample_rate, subtype)
+    with trace.span("encode"):
+        codecs.write(file, np.asarray(result), sample_rate, subtype)
     debug(f"'{file}' is saved")

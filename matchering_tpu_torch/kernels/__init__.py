@@ -6,6 +6,7 @@
 
 Each wrapper runs its plain twin for a CPU tensor and launches its kernel
 for a CUDA tensor, raising if it cannot; it never falls back from one to
-the other.  Each keeps a launch count, ``LAUNCHES``, raised by one per call
-that launches the kernel, and ``LAST_GRID``, the blocks of that launch.
+the other.  Each call that launches a kernel adds one to its counter in
+``trace`` (``launch.k1``, ``launch.k2``, ``launch.k3``) and sets the
+module's ``LAST_GRID``, the blocks of that launch.
 """

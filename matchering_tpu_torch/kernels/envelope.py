@@ -15,11 +15,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..ops import basics, sliding
 from ..utils import RowInts, make_odd, stage_host_arrays
 from . import build
 
-LAUNCHES = 0  # calls that launched the CUDA kernel
 LAST_GRID = 0  # blocks of the last launch, as the kernel's launcher reports them
 
 # the kernel's tiling (csrc/envelope.cu: kRun, kTile, kMaxHalo)
@@ -88,7 +88,7 @@ def limiter_front_end(
     lengths_ptr = build.lengths_pointer(lengths, rows, n, window, array.device)
     lib = build.library()
 
-    global LAUNCHES, LAST_GRID
+    global LAST_GRID
     gain = torch.empty(array.shape[:-1], dtype=array.dtype, device=array.device)
     slided = torch.empty_like(gain)
     launched = (ctypes.c_longlong * 1)()
@@ -100,6 +100,6 @@ def limiter_front_end(
             float(threshold), window, launched, stream,
         )
     build.check(status, "envelope kernel")
-    LAUNCHES += 1
+    trace.count("launch.k1")
     LAST_GRID = launched[0]
     return gain, slided

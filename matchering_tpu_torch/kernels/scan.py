@@ -17,10 +17,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..utils import RowInts
 from . import build
 
-LAUNCHES = 0  # calls that launched the CUDA kernel
 LAST_GRID = 0  # blocks of the last launch, as the kernel's launcher reports them
 
 # the kernel's tiling (csrc/scan.cu: kRun, kTileLog, kTile, kPowers)
@@ -161,7 +161,7 @@ def first_order_filter(
             raise ValueError(f"zi holds {zi.shape[0]} states for {rows} rows")
         zi_ptr = zi.data_ptr()
 
-    global LAUNCHES, LAST_GRID
+    global LAST_GRID
     lib = build.library()
     y = torch.empty_like(x)
     scratch = torch.zeros(scratch_words(rows, n), dtype=torch.int64, device=x.device)
@@ -175,6 +175,6 @@ def first_order_filter(
             float(a1), int(reverse), ctypes.addressof(powers), scratch.data_ptr(), launched, stream,
         )
     build.check(status, "scan kernel")
-    LAUNCHES += 1
+    trace.count("launch.k2")
     LAST_GRID = launched[0]
     return y

@@ -35,9 +35,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from . import build
 
-LAUNCHES = 0  # calls that launched the CUDA kernel
 LAST_GRID = 0  # blocks of the last launch, the grid passed to its launcher
 
 # the kernel's geometry (csrc/sos_scan.cu: kRun, kThreads, kTile, kLaneStates,
@@ -310,7 +310,7 @@ def sos_filter(
     n = x.shape[-1]
     rows = 1 if x.ndim == 1 else x.shape[0]
 
-    global LAUNCHES, LAST_GRID
+    global LAST_GRID
     lib = build.library()
     if x.data_ptr() % 16:  # the kernel reads and writes from 16-byte boundaries
         x = x.clone()
@@ -328,6 +328,6 @@ def sos_filter(
             float(a2), tables.data_ptr(), grid, scratch.data_ptr(), stream,
         )
     build.check(status, "sos scan kernel")
-    LAUNCHES += 1
+    trace.count("launch.k3")
     LAST_GRID = grid
     return y

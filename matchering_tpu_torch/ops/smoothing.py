@@ -190,14 +190,12 @@ _DECIDED_MAX = 8
 
 
 def _probe(op, vector: np.ndarray) -> np.ndarray:
-    """``op @ vector`` in float64 on the host; a tensor on a card computes
-    it there and is read back once (``utils.HOST_READS``)."""
+    """``op @ vector`` in float64 on the host; a tensor computes it on its
+    device and is read back once (``utils.read_back``)."""
     if not isinstance(op, torch.Tensor):
         return np.asarray(op, dtype=np.float64) @ vector
     product = op.to(torch.float64) @ torch.as_tensor(vector, device=op.device)
-    if product.device.type != "cpu":
-        utils.HOST_READS += 1
-    return product.cpu().numpy()
+    return utils.read_back(product).cpu().numpy()
 
 
 def _folded_by_value(to_log, rates, lowess_params) -> bool:

@@ -24,6 +24,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from . import trace
 from .config import Config
 from .limiter import limit
 from .log import Code, debug, debug_line, info
@@ -34,6 +35,7 @@ from .utils import (
     host_int,
     make_odd,
     ms_to_samples,
+    read_back,
     resolve_device,
     stage_host_arrays,
     to_db,
@@ -185,119 +187,128 @@ def master_graph(
     the target the limiter's end) then follows its true length, so row r
     reproduces the master of the unpadded pair r, and output samples past
     ``target_length`` are 0.  Given as ``RowInts`` everything is already
-    on the device: the graph makes no host sync on this path."""
-    single = target.ndim == 2  # one pair is one row
-    if single:
-        target, reference = target[None], reference[None]
-    if target_length is not None:
-        target_length = RowInts.per_row(target_length, target.device)
-    if reference_length is not None:
-        reference_length = RowInts.per_row(reference_length, reference.device)
-    dtype = config.torch_dtype
-    if interp_ops is None:
-        operators = operators_for_config(config, target.device)
-    else:
-        operators = smoothing.as_smoothing(
-            interp_ops,
-            config.log_grid_size,
-            smoothing.lowess_parameters(config),
-            dtype,
-            target.device,
-            rates=smoothing.grid_rates(config),
+    on the device: the graph makes no host sync on this path.
+
+    Its five stages are the spans ``levels``, ``spectra``, ``convolve``,
+    ``correction`` and ``finalize`` (``trace``), each timed on the device."""
+    device = target.device
+    with trace.span("levels", device=device):
+        single = target.ndim == 2  # one pair is one row
+        if single:
+            target, reference = target[None], reference[None]
+        if target_length is not None:
+            target_length = RowInts.per_row(target_length, target.device)
+        if reference_length is not None:
+            reference_length = RowInts.per_row(reference_length, reference.device)
+        dtype = config.torch_dtype
+        if interp_ops is None:
+            operators = operators_for_config(config, target.device)
+        else:
+            operators = smoothing.as_smoothing(
+                interp_ops,
+                config.log_grid_size,
+                smoothing.lowess_parameters(config),
+                dtype,
+                target.device,
+                rates=smoothing.grid_rates(config),
+            )
+        target = basics.to_working_float(target, dtype)
+        reference = basics.to_working_float(reference, dtype)
+        report: Dict[str, torch.Tensor] = {}
+
+        # --- Stage 1: match levels (stages.py:38-104) ---
+        reference, final_amplitude_coefficient = basics.normalize(
+            reference, config.threshold, config.min_value, normalize_clipped=False
         )
-    target = basics.to_working_float(target, dtype)
-    reference = basics.to_working_float(reference, dtype)
-    report: Dict[str, torch.Tensor] = {}
+        report["final_amplitude_coefficient"] = final_amplitude_coefficient
 
-    # --- Stage 1: match levels (stages.py:38-104) ---
-    reference, final_amplitude_coefficient = basics.normalize(
-        reference, config.threshold, config.min_value, normalize_clipped=False
-    )
-    report["final_amplitude_coefficient"] = final_amplitude_coefficient
+        t_division, r_division = (
+            _Division.static(track.shape[1], config.max_piece_size)
+            if length is None
+            else _Division.dynamic(track.shape[1], length, config.max_piece_size)
+            for track, length in ((target, target_length), (reference, reference_length))
+        )
+        n = target.shape[1]
 
-    t_division, r_division = (
-        _Division.static(track.shape[1], config.max_piece_size)
-        if length is None
-        else _Division.dynamic(track.shape[1], length, config.max_piece_size)
-        for track, length in ((target, target_length), (reference, reference_length))
-    )
-    n = target.shape[1]
+        target_mid, target_side = basics.lr_to_ms(target)
+        reference_mid, reference_side = basics.lr_to_ms(reference)
 
-    target_mid, target_side = basics.lr_to_ms(target)
-    reference_mid, reference_side = basics.lr_to_ms(reference)
+        t_mask, t_match_rms = _analyze_levels(target_mid, t_division)
+        r_mask, r_match_rms = _analyze_levels(reference_mid, r_division)
+        report["target_match_rms"] = t_match_rms
+        report["reference_match_rms"] = r_match_rms
 
-    t_mask, t_match_rms = _analyze_levels(target_mid, t_division)
-    r_mask, r_match_rms = _analyze_levels(reference_mid, r_division)
-    report["target_match_rms"] = t_match_rms
-    report["reference_match_rms"] = r_match_rms
-
-    rms_coefficient = r_match_rms / torch.clamp(t_match_rms, min=config.min_value)
-    report["rms_coefficient"] = rms_coefficient
+        rms_coefficient = r_match_rms / torch.clamp(t_match_rms, min=config.min_value)
+        report["rms_coefficient"] = rms_coefficient
 
     # --- Stage 2: match frequencies (stages.py:107-135) ---
-    # spectra come from the unamplified target channels and are scaled by
-    # the RMS coefficient (|FFT| is positively homogeneous)
-    t_mid_fft, t_side_fft = _masked_spectrum_pair(
-        target_mid, target_side, t_mask, t_division, config
-    )
-    r_mid_fft, r_side_fft = _masked_spectrum_pair(
-        reference_mid, reference_side, r_mask, r_division, config
-    )
-    coefficient = rms_coefficient[:, None]
-    mid_fir = _fir_from_spectra(t_mid_fft * coefficient, r_mid_fft, config, operators)
-    side_fir = _fir_from_spectra(t_side_fft * coefficient, r_side_fft, config, operators)
+    with trace.span("spectra", device=device):
+        # spectra come from the unamplified target channels and are scaled by
+        # the RMS coefficient (|FFT| is positively homogeneous)
+        t_mid_fft, t_side_fft = _masked_spectrum_pair(
+            target_mid, target_side, t_mask, t_division, config
+        )
+        r_mid_fft, r_side_fft = _masked_spectrum_pair(
+            reference_mid, reference_side, r_mask, r_division, config
+        )
+        coefficient = rms_coefficient[:, None]
+        mid_fir = _fir_from_spectra(t_mid_fft * coefficient, r_mid_fft, config, operators)
+        side_fir = _fir_from_spectra(t_side_fft * coefficient, r_side_fft, config, operators)
 
-    # the 2B mid and side rows go through one convolution call
-    rows = target.shape[0]
-    convolved = convolve.fft_convolve_same_batch(
-        torch.stack([target_mid * coefficient, target_side * coefficient], dim=1).reshape(2 * rows, n),
-        torch.stack([mid_fir, side_fir], dim=1).reshape(2 * rows, -1),
-    ).reshape(rows, 2, n)
-    if target_length is not None:
-        # the FIR tail bleeds past the true end of a padded track; the
-        # reference's result stops there, so zero the overhang before any
-        # peak-sensitive stage (normalize, limiter) sees it
-        convolved = convolved * target_length.mask(n, convolved.dtype)[:, None, :]
-    result_mid = convolved[:, 0]
-    result = basics.ms_to_lr(result_mid, convolved[:, 1])
+    with trace.span("convolve", device=device):
+        # the 2B mid and side rows go through one convolution call
+        rows = target.shape[0]
+        convolved = convolve.fft_convolve_same_batch(
+            torch.stack([target_mid * coefficient, target_side * coefficient], dim=1).reshape(2 * rows, n),
+            torch.stack([mid_fir, side_fir], dim=1).reshape(2 * rows, -1),
+        ).reshape(rows, 2, n)
+        if target_length is not None:
+            # the FIR tail bleeds past the true end of a padded track; the
+            # reference's result stops there, so zero the overhang before any
+            # peak-sensitive stage (normalize, limiter) sees it
+            convolved = convolved * target_length.mask(n, convolved.dtype)[:, None, :]
+        result_mid = convolved[:, 0]
+        result = basics.ms_to_lr(result_mid, convolved[:, 1])
 
     # --- Stage 3: RMS correction (stages.py:138-170) ---
     # clip(c*x, 1) = c * clip(x, 1/c) and piece RMS is homogeneous, so each
     # step reads the unscaled mid channel with a scaled threshold and one
     # final scale touches the stereo track
-    c_total = torch.ones(rows, dtype=dtype, device=result.device)
-    for step in range(config.rms_correction_steps):
-        clipped = basics.clip(result_mid, 1.0 / c_total)
-        _, clipped_match_rms = _analyze_levels(clipped, t_division)
-        coefficient = r_match_rms / torch.clamp(
-            c_total * clipped_match_rms, min=config.min_value
-        )
-        report[f"rms_correction_{step + 1}"] = coefficient
-        c_total = c_total * coefficient
-    result = result * c_total[:, None, None]
+    with trace.span("correction", device=device):
+        c_total = torch.ones(rows, dtype=dtype, device=result.device)
+        for step in range(config.rms_correction_steps):
+            clipped = basics.clip(result_mid, 1.0 / c_total)
+            _, clipped_match_rms = _analyze_levels(clipped, t_division)
+            coefficient = r_match_rms / torch.clamp(
+                c_total * clipped_match_rms, min=config.min_value
+            )
+            report[f"rms_correction_{step + 1}"] = coefficient
+            c_total = c_total * coefficient
+        result = result * c_total[:, None, None]
 
     # --- Stage 4: finalize (stages.py:173-207) ---
-    result_no_limiter_normalized = None
-    if need_no_limiter_normalized:
-        result_no_limiter_normalized, normalized_coefficient = basics.normalize(
-            result, config.threshold, config.min_value, normalize_clipped=True
-        )
-        report["normalized_coefficient"] = normalized_coefficient
+    with trace.span("finalize", device=device):
+        result_no_limiter_normalized = None
+        if need_no_limiter_normalized:
+            result_no_limiter_normalized, normalized_coefficient = basics.normalize(
+                result, config.threshold, config.min_value, normalize_clipped=True
+            )
+            report["normalized_coefficient"] = normalized_coefficient
 
-    result_default = None
-    if need_default:
-        result_default = (
-            limit(result, config, length=target_length)
-            * final_amplitude_coefficient[:, None, None]
-        )
+        result_default = None
+        if need_default:
+            result_default = (
+                limit(result, config, length=target_length)
+                * final_amplitude_coefficient[:, None, None]
+            )
 
-    out = MasterOutput(
-        result=result_default,
-        result_no_limiter=result if need_no_limiter else None,
-        result_no_limiter_normalized=result_no_limiter_normalized,
-        report=report,
-    )
-    return out.row(0) if single else out
+        out = MasterOutput(
+            result=result_default,
+            result_no_limiter=result if need_no_limiter else None,
+            result_no_limiter_normalized=result_no_limiter_normalized,
+            report=report,
+        )
+        return out.row(0) if single else out
 
 
 def minimum_length(config: Config) -> int:
@@ -340,26 +351,29 @@ def master(
     ``target_length`` / ``reference_length`` (each optional; an int, a
     numpy int, or a 0-d array or tensor, which is read back once): the
     true lengths of zero-padded tracks, checked here against the padded
-    lengths and :func:`minimum_length` before anything is staged."""
+    lengths and :func:`minimum_length` before anything is staged.  The
+    span ``master``, timed on the device: a call's root, or a child of
+    ``graph`` under ``process()``."""
     device = resolve_device(device)
-    lengths = []
-    for length, track, role in (
-        (target_length, target, "target"), (reference_length, reference, "reference")
-    ):
-        if length is not None:
-            (length,) = check_lengths([host_int(length)], track.shape[0], config, role)
-            length = RowInts.of([length], device)
-        lengths.append(length)
-    return master_graph(
-        to_device(target, device),
-        to_device(reference, device),
-        config,
-        need_default=need_default,
-        need_no_limiter=need_no_limiter,
-        need_no_limiter_normalized=need_no_limiter_normalized,
-        target_length=lengths[0],
-        reference_length=lengths[1],
-    )
+    with trace.span("master", device=device):
+        lengths = []
+        for length, track, role in (
+            (target_length, target, "target"), (reference_length, reference, "reference")
+        ):
+            if length is not None:
+                (length,) = check_lengths([host_int(length)], track.shape[0], config, role)
+                length = RowInts.of([length], device)
+            lengths.append(length)
+        return master_graph(
+            to_device(target, device),
+            to_device(reference, device),
+            config,
+            need_default=need_default,
+            need_no_limiter=need_no_limiter,
+            need_no_limiter_normalized=need_no_limiter_normalized,
+            target_length=lengths[0],
+            reference_length=lengths[1],
+        )
 
 
 def main(
@@ -379,51 +393,53 @@ def main(
     With ``config.length_bucketing`` both tracks are zero-padded on the
     device up to a multiple of it, mastered at their true lengths (the
     dynamic path), and the results cut back to the target's length
-    (``matchering_tpu/stages.py:446-480``)."""
-    debug_line()
-    info(Code.INFO_MATCHING_LEVELS)
-    info(Code.INFO_MATCHING_FREQS)
-    info(Code.INFO_CORRECTING_LEVELS)
-    start = time.perf_counter()
-    device = resolve_device(device)
-    bucket = config.length_bucketing
-    if bucket:
-        from .parallel.batch import bucket_pad
+    (``matchering_tpu/stages.py:446-480``).  The span ``graph``: the
+    graph's enqueue and the report's read, which waits for the device."""
+    with trace.span("graph"):
+        debug_line()
+        info(Code.INFO_MATCHING_LEVELS)
+        info(Code.INFO_MATCHING_FREQS)
+        info(Code.INFO_CORRECTING_LEVELS)
+        start = time.perf_counter()
+        device = resolve_device(device)
+        bucket = config.length_bucketing
+        if bucket:
+            from .parallel.batch import bucket_pad
 
-        t_batch, (t_len,) = bucket_pad([target], multiple=bucket, device=device)
-        r_batch, (r_len,) = bucket_pad([reference], multiple=bucket, device=device)
-        out = master(
-            t_batch[0],
-            r_batch[0],
-            config,
-            need_default=need_default,
-            need_no_limiter=need_no_limiter,
-            need_no_limiter_normalized=need_no_limiter_normalized,
-            device=device,
-            target_length=t_len,
-            reference_length=r_len,
-        )
-        out = out._replace(
-            **{key: getattr(out, key)[:t_len] for key in _VARIANTS if getattr(out, key) is not None}
-        )
-    else:
-        out = master(
-            target,
-            reference,
-            config,
-            need_default=need_default,
-            need_no_limiter=need_no_limiter,
-            need_no_limiter_normalized=need_no_limiter_normalized,
-            device=device,
-        )
-    # reading the report waits for the device to finish the chain
-    report_host = {key: float(value) for key, value in out.report.items()}
-    debug(f"Mastering graph (all four stages) took {time.perf_counter() - start:.3f} s")
-    debug_line()
-    info(Code.INFO_FINALIZING)
-    for key, value in report_host.items():
-        try:
-            debug(f"{key}: {to_db(value)}")
-        except (ValueError, OverflowError):
-            debug(f"{key}: {value}")
-    return out.result, out.result_no_limiter, out.result_no_limiter_normalized
+            t_batch, (t_len,) = bucket_pad([target], multiple=bucket, device=device)
+            r_batch, (r_len,) = bucket_pad([reference], multiple=bucket, device=device)
+            out = master(
+                t_batch[0],
+                r_batch[0],
+                config,
+                need_default=need_default,
+                need_no_limiter=need_no_limiter,
+                need_no_limiter_normalized=need_no_limiter_normalized,
+                device=device,
+                target_length=t_len,
+                reference_length=r_len,
+            )
+            out = out._replace(
+                **{key: getattr(out, key)[:t_len] for key in _VARIANTS if getattr(out, key) is not None}
+            )
+        else:
+            out = master(
+                target,
+                reference,
+                config,
+                need_default=need_default,
+                need_no_limiter=need_no_limiter,
+                need_no_limiter_normalized=need_no_limiter_normalized,
+                device=device,
+            )
+        # reading the report waits for the device to finish the chain
+        report_host = {key: float(read_back(value)) for key, value in out.report.items()}
+        debug(f"Mastering graph (all four stages) took {time.perf_counter() - start:.3f} s")
+        debug_line()
+        info(Code.INFO_FINALIZING)
+        for key, value in report_host.items():
+            try:
+                debug(f"{key}: {to_db(value)}")
+            except (ValueError, OverflowError):
+                debug(f"{key}: {value}")
+        return out.result, out.result_no_limiter, out.result_no_limiter_normalized

@@ -13,6 +13,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 
+from . import trace
+
 
 def get_temp_folder(results: list) -> str:
     """Folder of the first result file, used for codec temp conversions."""
@@ -98,20 +100,25 @@ def torch_dtype(dtype):
     return getattr(torch, np.dtype(dtype).name)
 
 
-HOST_READS = 0  # lengths read back from a card by host_int and RowInts.per_row
+def read_back(tensor):
+    """``tensor``, counted as one read of its values into host values (on
+    a card, one host sync): ``host_reads`` and its bytes in ``d2h_bytes``
+    (``trace``), on every device."""
+    trace.count("host_reads")
+    trace.count("d2h_bytes", tensor.numel() * tensor.element_size())
+    return tensor
 
 
 def host_int(value) -> int:
     """One per-track length or piece geometry value, in any of the JAX
     package's forms (a Python or numpy int, a 0-d array or tensor), as a
-    host int.  A tensor on a card is read back (one host sync, counted in
-    ``HOST_READS``): the kernels check lengths and size launches on the
+    host int.  A tensor is read back (on a card, one host sync; counted
+    by ``read_back``): the kernels check lengths and size launches on the
     host."""
     import torch
 
-    global HOST_READS
-    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
-        HOST_READS += 1
+    if isinstance(value, torch.Tensor):
+        return int(read_back(value))
     return int(value)
 
 
@@ -140,18 +147,15 @@ class RowInts(NamedTuple):
         a 0-d array or tensor) as one row, for an unbatched input that runs
         as a batch of one; a sequence or 1-d tensor as one value per row.
         A tensor's values are read back to the host once (from a card, one
-        host sync, counted in ``HOST_READS``), and the tensor itself is the
+        host sync; counted by ``read_back``), and the tensor itself is the
         device side where it is on ``device`` already."""
         import torch
 
         if isinstance(value, RowInts):
             return value
         if isinstance(value, torch.Tensor):
-            global HOST_READS
             rows = value.reshape(-1)
-            host = tuple(int(v) for v in rows.tolist())
-            if value.device.type != "cpu":
-                HOST_READS += 1
+            host = tuple(int(v) for v in read_back(rows).tolist())
             return cls(host, rows.to(device=device, dtype=torch.int64))
         if np.ndim(value) == 0:
             return cls.of([int(value)], device)
@@ -178,29 +182,35 @@ def to_device(array, device):
     call) and crosses from there without blocking the host: a copy from
     pageable memory runs at a fraction of the link's rate.  One bound for
     the CPU is wrapped, after a copy only where its buffer is read-only (a
-    decoded file), since a tensor may not share read-only memory."""
+    decoded file), since a tensor may not share read-only memory.  A host
+    array's staging is the span ``stage``, and its bytes count in
+    ``h2d_bytes`` (``trace``), on every device."""
     import torch
 
     if isinstance(array, torch.Tensor):
         return array.to(device)
     device = torch.device(device)
-    if device.type == "cpu":
-        return torch.from_numpy(np.require(array, requirements=["C", "W"]))
-    dtype = torch.from_numpy(np.empty(0, dtype=array.dtype)).dtype
-    staged = torch.empty(array.shape, dtype=dtype, pin_memory=True)
-    staged.numpy()[...] = array
-    return staged.to(device, non_blocking=True)
+    with trace.span("stage"):
+        trace.count("h2d_bytes", array.nbytes)
+        if device.type == "cpu":
+            return torch.from_numpy(np.require(array, requirements=["C", "W"]))
+        dtype = torch.from_numpy(np.empty(0, dtype=array.dtype)).dtype
+        staged = torch.empty(array.shape, dtype=dtype, pin_memory=True)
+        staged.numpy()[...] = array
+        return staged.to(device, non_blocking=True)
 
 
 def to_host(tensor):
     """A tensor's values as a host numpy array, at its dtype.  From a card
     they are copied once, into page-locked memory (the caching host
     allocator's): a copy into fresh pageable memory runs at a fraction of
-    the link's rate."""
+    the link's rate.  The span ``fetch``; one ``read_back``."""
     import torch
 
-    if tensor.device.type == "cpu":
-        return tensor.numpy()
-    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
-    host.copy_(tensor)
-    return host.numpy()
+    with trace.span("fetch"):
+        read_back(tensor)
+        if tensor.device.type == "cpu":
+            return tensor.numpy()
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        host.copy_(tensor)
+        return host.numpy()
