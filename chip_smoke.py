@@ -210,7 +210,12 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    watching: one root, the ``host_reads`` it counts equal to the syncs the
    mode reports, its ``h2d_bytes`` and ``d2h_bytes`` equal to the copy
    counter's, and its ``load``, ``check``, ``equality``, ``graph``,
-   ``fetch`` and ``encode`` spans >= 95 % of its wall time; one recorded
+   ``fetch`` and ``encode`` spans >= 95 % of its wall time, and every byte
+   it staged read straight from its file into the page-locked block it
+   crossed from (``direct_bytes`` equal to ``h2d_bytes``); two tracks of
+   one page-locked size class staged back to back behind a busy card
+   (:func:`staging_reuse`), the first still holding its file's codes once
+   the card has run; one recorded
    ``master()`` of a 60-min 96 kHz target against a 200 s reference built
    on the card, whose five stage spans' device times are >= 97 % of its
    ``master`` span's; and the cost of recording, calls of both with
@@ -2462,6 +2467,53 @@ TRACE_SECONDS = (240, 300)  # the target's and the reference's
 TRACE_RUNS = 3  # runs of each arm, in turns
 TRACE_CALLS = 5  # calls a run; its median is the run's
 SYNC_WARNING = "called a synchronizing CUDA operation"
+REUSE_SECONDS = 235  # a second track of the target's page-locked size class (64 MiB for 240 s)
+REUSE_SLEEP_CYCLES = 2_000_000_000  # about a second of the card's clock ahead of the first copy
+
+
+def staging_reuse(mt, torch, device, paths):
+    """The hazard of reading a file straight into a page-locked block: two
+    tracks (``paths``, two PCM_16 WAVs of one size class) go through the
+    port's ingest back to back, with no sync between them, behind a second
+    of work on the card, so the first track's copy is still queued when the
+    second's block is handed out and filled.  The host allocator's cache
+    is emptied first where torch can, so the first block is the only one of
+    its size class.  The caching host allocator must not hand out the first
+    block before that copy has run: the second block must be another, and
+    once the card has run each device tensor must equal its file's codes;
+    each block must be page-locked.  Returns the phase's numbers."""
+    from matchering_tpu_torch import core
+    from matchering_tpu_torch.io import loader, wav
+
+    blocks = []
+    allocate = loader.staging_block
+
+    def watched(shape, dtype, on):
+        block = allocate(shape, dtype, on)
+        blocks.append((block.is_pinned(), block.data_ptr(), tuple(block.shape)))
+        return block
+
+    loader.staging_block = watched
+    try:
+        torch.cuda.synchronize()
+        empty = getattr(torch._C, "_host_emptyCache", None) or getattr(torch._C, "_accelerator_emptyHostCache", None)
+        if empty is not None:
+            empty()
+        torch.cuda._sleep(REUSE_SLEEP_CYCLES)
+        staged = [core._ingest(path, "reference", mt.Config(), os.path.dirname(path), device)[0] for path in paths]
+        queued = torch.cuda.current_stream(device).query() is False
+        torch.cuda.synchronize()
+    finally:
+        loader.staging_block = allocate
+    require(len(blocks) == 2 and all(pinned for pinned, _, _ in blocks) and blocks[0][1] != blocks[1][1] and queued,
+            f"phase 18: the ingest staged from {blocks} (page-locked, address, shape); the card "
+            f"{'was' if queued else 'was not'} still busy after the second ingest")
+    for path, tensor in zip(paths, staged):
+        codes = torch.from_numpy(np.ascontiguousarray(wav.read(path, raw_int=True)[0]))
+        require(torch.equal(tensor.cpu(), codes.repeat(1, 2) if codes.shape[1] == 1 else codes),
+                f"phase 18: the track staged from {os.path.basename(path)} differs from its file's codes")
+    return {"blocks": [{"pinned": p, "shape": list(shape)} for p, _, shape in blocks],
+            "host_cache_emptied": empty is not None, "queued_at_second_ingest": queued}
 
 
 def trace_path(mt, torch, device, card):
@@ -2544,9 +2596,15 @@ def trace_path(mt, torch, device, card):
         spans_ms = total_ms(spans, host + ("stage", "master") + stages)
         covered = sum(spans_ms[name] for name in host) / root_ms
         require(covered >= 0.95, f"phase 18: the host spans cover {covered:.4f} of process(): {spans_ms}")
+        direct = root.counters.get("direct_bytes", 0)
+        require(direct == counters["h2d_bytes"],
+                f"phase 18: process() read {direct} bytes straight into staging memory of {counters['h2d_bytes']} staged")
         numbers["song"] = {"names": [s.name for s in spans], "root_ms": root_ms, "spans_ms": spans_ms,
-                           "host_spans_cover": covered, "counters": counters, "syncs": syncs,
-                           "copy_counter": moved, "recording_ms": in_turns(song)}
+                           "host_spans_cover": covered, "counters": counters, "direct_bytes": direct,
+                           "syncs": syncs, "copy_counter": moved, "recording_ms": in_turns(song)}
+        second = os.path.join(tmp, "second.wav")
+        wav.write(second, make_pair(REUSE_SECONDS, SR, SEED + 22)[0], SR, "PCM_16")
+        numbers["staging_reuse"] = staging_reuse(mt, torch, device, (paths[0], second))
 
     target = card_track(torch, device, LONG_SECONDS, LONG_RATE, SEED + 20, "target")
     reference = card_track(torch, device, LONG_REFERENCE_SECONDS, LONG_RATE, SEED + 21, "reference")
@@ -2569,7 +2627,8 @@ def trace_path(mt, torch, device, card):
                             "recording_ms": in_turns(long_form)}
     del target, reference
     numbers["seconds"] = time.perf_counter() - start
-    print(f"phase 18 on {card}: process() {counters}, {syncs} syncs, copies {moved}, host spans cover "
+    print(f"phase 18 on {card}: process() {counters}, {syncs} syncs, copies {moved}, "
+          f"staging reuse {numbers['staging_reuse']}, host spans cover "
           f"{numbers['song']['host_spans_cover']:.4f}; master() stages cover {covered:.4f} of its device time "
           f"{device_ms}; recording off/on: process() {numbers['song']['recording_ms']}, "
           f"master() {numbers['long_form']['recording_ms']} ms", flush=True)

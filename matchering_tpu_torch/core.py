@@ -16,7 +16,8 @@ import torch
 from . import trace
 from .checker import check, check_equality
 from .config import Config
-from .io import load, save
+from .io import save
+from .io.loader import load_staged
 from .log import Code, ModuleError, debug, debug_line, info
 from .preview import create_preview
 from .results import Result
@@ -30,8 +31,9 @@ def _ingest(path: str, role: str, config: Config, temp_folder: str, device):
     read it there.  Integer-PCM WAV keeps its raw int16/int32 payload
     (``raw_int=True``): that is what crosses, and the device converts it
     (``ops.basics.to_working_float``), resampling it there if its rate is
-    not the internal one."""
-    audio, rate = load(path, role, temp_folder, raw_int=True)
+    not the internal one.  A 16- or 32-bit payload is read straight into
+    the staging block it crosses from (``load_staged``)."""
+    audio, rate = load_staged(path, role, temp_folder, device=device)
     return check(audio, rate, config, role, device=device)
 
 

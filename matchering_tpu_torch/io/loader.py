@@ -25,8 +25,8 @@ import numpy as np
 
 from .. import trace
 from ..log import Code, ModuleError, debug, info, warning
-from ..utils import random_file
-from . import codecs
+from ..utils import random_file, staging_block
+from . import codecs, wav
 
 _LOAD_ERRORS = {"TARGET": Code.ERROR_TARGET_LOADING, "REFERENCE": Code.ERROR_REFERENCE_LOADING}
 _LOSSY_EVENTS = {
@@ -106,15 +106,50 @@ def load(
     and converts there (``ops.basics.to_working_float``).  The span
     ``load``.
     """
+    return _load(file, file_type, temp_folder, raw_int, None)
+
+
+def load_staged(file: str, file_type: str, temp_folder: Optional[str] = None, *, device):
+    """``load(file, file_type, temp_folder, raw_int=True)`` for a track bound
+    for ``device``.  A WAV whose payload is already the codes that cross
+    (16- or 32-bit integer PCM, ``wav.pcm_layout``) is read with one
+    ``readinto`` straight into ``utils.staging_block(..., device)``, the
+    block ``to_device`` stages from, and its bytes count in
+    ``direct_bytes`` (``trace``); every other file decodes as ``load``
+    decodes it.  Returns the block (a page-locked tensor for a card, a
+    numpy array for the CPU) or ``load``'s array, and the rate."""
+    return _load(file, file_type, temp_folder, True, device)
+
+
+def _read_direct(file: str, device):
+    """(staging block, rate) of a file ``wav.pcm_layout`` places, else None
+    (the decode chain then reads it, and raises what it raises)."""
+    try:
+        with open(file, "rb") as f:
+            layout = wav.pcm_layout(f)
+            if layout is None:
+                return None
+            block = staging_block((layout.frames, layout.channels), layout.dtype, device)
+            wav.read_pcm_into(f, layout, np.asarray(block))
+    except _DECODE_ERRORS:
+        return None
+    trace.count("direct_bytes", layout.frames * layout.channels * layout.dtype.itemsize)
+    return block, layout.sample_rate
+
+
+def _load(file, file_type, temp_folder, raw_int, device):
     role = file_type.upper()
     debug(f"Decoding the {role} track from '{file}'")
     folder = tempfile.gettempdir() if temp_folder is None else temp_folder
-    decoded: Optional[Tuple[np.ndarray, int]] = None
+    decoded = None
     with trace.span("load"):
-        for strategy in _DECODE_CHAIN:
-            decoded = strategy(file, role, folder, raw_int)
-            if decoded is not None:
-                break
+        if device is not None:
+            decoded = _read_direct(file, device)
+        if decoded is None:
+            for strategy in _DECODE_CHAIN:
+                decoded = strategy(file, role, folder, raw_int)
+                if decoded is not None:
+                    break
     if decoded is None:
         _raise_load_error(role)
     debug(f"{role} decoded: {decoded[0].shape[0]} samples at {decoded[1]} Hz")

@@ -10,8 +10,10 @@ shape ``(n, channels)`` (``always_2d`` semantics).
 
 from __future__ import annotations
 
+import os
 import struct
-from typing import Tuple
+import sys
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -54,16 +56,45 @@ def decoder_for(tag: int, bits: int):
     return None
 
 
-def _iter_chunks(buf: bytes, start: int, end: int):
-    """Yield (chunk id, body offset, raw declared size) — the declared size
-    is NOT clamped to the buffer (RF64 stores 0xFFFFFFFF as a sentinel);
-    slicing at the use sites clamps naturally."""
-    pos = start
+def _read_at(f, offset: int, size: int) -> bytes:
+    f.seek(offset)
+    return f.read(size)
+
+
+def _chunks(f):
+    """The ``fmt `` fields and the payload's (offset, length) of the open
+    WAV, RF64 or BW64 file ``f``, found with small reads and seeks.  The
+    last ``fmt `` and ``data`` chunks count; chunks are word-aligned; the
+    declared data size is clamped to the bytes present."""
+    end = os.fstat(f.fileno()).st_size
+    head = _read_at(f, 0, 12)
+    if len(head) < 12 or head[:4] not in (b"RIFF", b"RF64", b"BW64") or head[8:12] != b"WAVE":
+        raise WavFormatError("unknown format: not a RIFF/WAVE stream")
+
+    # RF64 (EBU Tech 3306): the 32-bit riff/data sizes are 0xFFFFFFFF and the
+    # true 64-bit sizes live in a 'ds64' chunk that precedes 'fmt '
+    ds64_data_size = None
+    fmt = None
+    data = None
+    pos = 12
     while pos + 8 <= end:
-        cid, size = struct.unpack_from("<4sI", buf, pos)
+        cid, size = struct.unpack("<4sI", _read_at(f, pos, 8))
         body = pos + 8
-        yield cid, body, size
-        pos = body + size + (size & 1)  # chunks are word-aligned
+        if cid == b"ds64" and size >= 16:
+            _riff_size, ds64_data_size = struct.unpack("<qq", _read_at(f, body, 16))
+        elif cid == b"fmt ":
+            fmt = struct.unpack("<HHIIHH", _read_at(f, body, 16))
+            if fmt[0] == WAVE_FORMAT_EXTENSIBLE and size >= 40:
+                # SubFormat GUID's first two bytes carry the actual format tag
+                fmt = struct.unpack("<H", _read_at(f, body + 24, 2)) + fmt[1:]
+        elif cid == b"data":
+            declared = ds64_data_size if size == 0xFFFFFFFF and ds64_data_size is not None else size
+            first, last, _ = slice(body, body + declared).indices(end)  # the bytes a slice of the file holds
+            data = (first, max(0, last - first))
+        pos = body + size + (size & 1)  # the declared size, as stored
+    if fmt is None or data is None:
+        raise WavFormatError("unknown format: missing fmt/data chunk")
+    return fmt, data
 
 
 def read(path: str, raw_int: bool = False) -> Tuple[np.ndarray, int]:
@@ -75,46 +106,67 @@ def read(path: str, raw_int: bool = False) -> Tuple[np.ndarray, int]:
     converts on device (``stages.py`` ``master_graph``), so raw PCM rides
     the slow host->device link at container size instead of float size.
     Non-integer encodings ignore the flag and return float64 as usual.
+    ``pcm_layout`` and ``read_pcm_into`` read the same codes of a 16- or
+    32-bit file straight into a caller's buffer.
     """
     with open(path, "rb") as f:
-        buf = f.read()
-    is_rf64 = len(buf) >= 12 and buf[:4] in (b"RF64", b"BW64") and buf[8:12] == b"WAVE"
-    if not is_rf64 and (len(buf) < 12 or buf[:4] != b"RIFF" or buf[8:12] != b"WAVE"):
-        raise WavFormatError("unknown format: not a RIFF/WAVE stream")
+        fmt, (offset, length) = _chunks(f)
+        tag, channels, sample_rate, _brate, _balign, bits = fmt
+        if channels < 1:
+            raise WavFormatError("invalid channel count")
 
-    # RF64 (EBU Tech 3306): the 32-bit riff/data sizes are 0xFFFFFFFF and the
-    # true 64-bit sizes live in a 'ds64' chunk that precedes 'fmt '
-    ds64_data_size = None
-    fmt = None
-    data = None
-    for cid, body, size in _iter_chunks(buf, 12, len(buf)):
-        if cid == b"ds64" and size >= 16:
-            _riff_size, ds64_data_size = struct.unpack_from("<qq", buf, body)
-        elif cid == b"fmt ":
-            fmt = struct.unpack_from("<HHIIHH", buf, body)
-            if fmt[0] == WAVE_FORMAT_EXTENSIBLE and size >= 40:
-                # SubFormat GUID's first two bytes carry the actual format tag
-                (sub_tag,) = struct.unpack_from("<H", buf, body + 24)
-                fmt = (sub_tag,) + fmt[1:]
-        elif cid == b"data":
-            if size == 0xFFFFFFFF and ds64_data_size is not None:
-                size = ds64_data_size
-            data = buf[body : body + size]
-    if fmt is None or data is None:
-        raise WavFormatError("unknown format: missing fmt/data chunk")
+        decoder = (raw_int and raw_decoder_for(tag, bits)) or decoder_for(tag, bits)
+        if decoder is None:
+            raise WavFormatError(f"unsupported WAV encoding: tag={tag} bits={bits}")
 
-    tag, channels, sample_rate, _brate, _balign, bits = fmt
-    if channels < 1:
-        raise WavFormatError("invalid channel count")
-
-    decoder = (raw_int and raw_decoder_for(tag, bits)) or decoder_for(tag, bits)
-    if decoder is None:
-        raise WavFormatError(f"unsupported WAV encoding: tag={tag} bits={bits}")
-
-    frame_bytes = channels * (bits // 8)
-    usable = (len(data) // frame_bytes) * frame_bytes
-    samples = decoder(data[:usable])
+        frame_bytes = channels * (bits // 8)
+        data = _read_at(f, offset, (length // frame_bytes) * frame_bytes)
+    samples = decoder(data)
     return samples.reshape(-1, channels), sample_rate
+
+
+class PcmLayout(NamedTuple):
+    """Where a WAV's integer-PCM payload lies, for a payload whose bytes are
+    already the codes ``read(path, raw_int=True)`` returns: little-endian
+    PCM of 16 bits (int16) or 32 bits (int32)."""
+
+    offset: int  # the payload's first byte in the file
+    frames: int
+    channels: int
+    dtype: np.dtype
+    sample_rate: int
+
+
+_DIRECT_DTYPES = {16: np.dtype(np.int16), 32: np.dtype(np.int32)}
+
+
+def pcm_layout(f) -> Optional[PcmLayout]:
+    """The payload's layout in the open WAV, RF64 or BW64 file ``f``, found
+    as ``read`` finds it (its frames: the whole frames present), or None
+    where ``read(path, raw_int=True)`` would not return the payload's bytes
+    as they stand: another encoding (PCM_24 is widened, the rest scaled),
+    or a big-endian host.  Raises what ``read`` raises on a stream it
+    refuses."""
+    fmt, (offset, length) = _chunks(f)
+    tag, channels, sample_rate, _brate, _balign, bits = fmt
+    if sys.byteorder != "little" or tag != WAVE_FORMAT_PCM or bits not in _DIRECT_DTYPES or channels < 1:
+        return None
+    dtype = _DIRECT_DTYPES[bits]
+    return PcmLayout(offset, length // (channels * dtype.itemsize), channels, dtype, sample_rate)
+
+
+def read_pcm_into(f, layout: PcmLayout, out: np.ndarray) -> None:
+    """Fill ``out``, a writable C-contiguous array of ``layout``'s frames
+    times channels codes, with the payload of the open file ``f``: the
+    codes ``read(path, raw_int=True)`` returns, read straight into it."""
+    flat = out.reshape(-1).view(np.uint8)
+    f.seek(layout.offset)
+    filled = 0
+    while filled < flat.size:
+        n = f.readinto(flat[filled:])
+        if not n:
+            raise WavFormatError("the data chunk ended before its declared frames")
+        filled += n
 
 
 def write(path: str, array: np.ndarray, sample_rate: int, subtype: str = "PCM_16") -> None:

@@ -8,8 +8,11 @@ dict, and ``counts()`` a snapshot of it.  The port counts
 * ``host_reads``: reads of a tensor's values into host values (on a card,
   each waits for the device), counted on every device, so a run on the
   CPU counts what the same run counts on a card;
-* ``h2d_bytes``: the bytes of host arrays staged on a device
-  (``utils.to_device``);
+* ``h2d_bytes``: the bytes of host arrays staged on a device, and of
+  host tensors staged on a card (``utils.to_device``);
+* ``direct_bytes``: the bytes of integer-PCM WAV payloads read straight
+  into the block they are staged from (``io.loader.load_staged``): in a
+  ``process()`` of two 16-bit WAVs, all of its ``h2d_bytes``;
 * ``d2h_bytes``: the bytes read back to the host (``utils.to_host`` and
   every host read).
 

@@ -174,6 +174,20 @@ class RowInts(NamedTuple):
         return keep if dtype is None else keep.to(dtype)
 
 
+def staging_block(shape, dtype, device):
+    """A writable host block of ``shape`` and numpy ``dtype`` for data bound
+    for ``device``, which ``to_device`` stages without a refill: for a
+    card, a page-locked tensor from the caching host allocator (its blocks
+    are reused from call to call, and a block goes back out only once the
+    copies that read it have run); for the CPU, a numpy array, which
+    ``to_device`` wraps as it is."""
+    import torch
+
+    if torch.device(device).type == "cpu":
+        return np.empty(shape, dtype)
+    return torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype, pin_memory=True)
+
+
 def to_device(array, device):
     """Host array or tensor -> tensor on ``device``.  Integer PCM keeps its
     integer dtype, so raw int16 crosses to the card at half the bytes of
@@ -183,19 +197,24 @@ def to_device(array, device):
     pageable memory runs at a fraction of the link's rate.  One bound for
     the CPU is wrapped, after a copy only where its buffer is read-only (a
     decoded file), since a tensor may not share read-only memory.  A host
-    array's staging is the span ``stage``, and its bytes count in
-    ``h2d_bytes`` (``trace``), on every device."""
+    tensor bound for a card crosses as it is, without blocking the host
+    where it is page-locked (``staging_block``).  The staging of a host
+    array, on every device, and of a host tensor bound for a card, is the
+    span ``stage``, and its bytes count in ``h2d_bytes`` (``trace``)."""
     import torch
 
-    if isinstance(array, torch.Tensor):
-        return array.to(device)
     device = torch.device(device)
+    if isinstance(array, torch.Tensor):
+        if array.device.type != "cpu" or device.type == "cpu":
+            return array.to(device)
+        with trace.span("stage"):
+            trace.count("h2d_bytes", array.numel() * array.element_size())
+            return array.to(device, non_blocking=array.is_pinned())
     with trace.span("stage"):
         trace.count("h2d_bytes", array.nbytes)
         if device.type == "cpu":
             return torch.from_numpy(np.require(array, requirements=["C", "W"]))
-        dtype = torch.from_numpy(np.empty(0, dtype=array.dtype)).dtype
-        staged = torch.empty(array.shape, dtype=dtype, pin_memory=True)
+        staged = staging_block(array.shape, array.dtype, device)
         staged.numpy()[...] = array
         return staged.to(device, non_blocking=True)
 

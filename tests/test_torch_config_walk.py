@@ -616,13 +616,13 @@ def test_allow_equality_matches_jax(tmp_path):
 
 def test_temp_folder_reaches_the_loader(tmp_path, monkeypatch):
     """``Config(temp_folder=...)`` is the folder both packages' ``process``
-    hand their loader for each track."""
+    hand their loader for each track (the port's ``load_staged``)."""
     path = _wav_pair(tmp_path)
     folder = str(tmp_path / "staging")
-    for package, core_module, kwargs in ((mj, jcore, {}), (mt, core, {"device": "cpu"})):
+    for package, core_module, name, kwargs in ((mj, jcore, "load", {}), (mt, core, "load_staged", {"device": "cpu"})):
         seen = []
-        load = core_module.load
-        monkeypatch.setattr(core_module, "load", lambda f, role, temp, **kw: seen.append(temp) or load(f, role, temp, **kw))
+        load = getattr(core_module, name)
+        monkeypatch.setattr(core_module, name, lambda f, role, temp, **kw: seen.append(temp) or load(f, role, temp, **kw))
         with pytest.raises(package.ModuleError):  # the pair is one track: refused after both loads
             package.process(path, path, [package.pcm16(str(tmp_path / "no.wav"))],
                             package.Config(fft_size=1024, temp_folder=folder), **kwargs)

@@ -121,6 +121,31 @@ def test_the_counters_of_a_call_follow_from_its_shapes(pair, reference):
     assert not any(root.counters.get(f"launch.k{i}") for i in (1, 2, 3))
 
 
+def test_a_pcm16_pair_is_read_straight_into_its_staging_blocks(pair):
+    """Both tracks' payloads are read into the blocks they are staged
+    from: every byte staged is a byte read so, and no more than the two
+    files' payloads."""
+    payload = sum(wav.read(pair[name], raw_int=True)[0].nbytes for name in ("target", "reference"))
+    trace.clear()
+    with trace.recording():
+        run_process(pair)
+    (root,) = [s for s in trace.spans() if s.parent is None]
+    assert root.counters["direct_bytes"] == root.counters["h2d_bytes"]
+    assert root.counters["h2d_bytes"] == payload == 2 * 2 * (3 + 4) * SR
+
+
+def test_stage_is_recorded_once_per_track(pair):
+    trace.clear()
+    with trace.recording():
+        run_process(pair)
+    spans = trace.spans()
+    names = {s.id: s.name for s in spans}
+    stages = [s for s in spans if s.name == "stage"]
+    assert len(stages) == 2 and all(names[s.parent] == "check" for s in stages)
+    loads = sorted((s for s in spans if s.name == "load"), key=lambda s: s.start_ns)
+    assert [s.end_ns <= t.start_ns for s, t in zip(loads, sorted(stages, key=lambda s: s.start_ns))] == [True, True]
+
+
 def test_a_master_call_is_its_five_stages_in_order():
     rng = np.random.default_rng(7)
     target = torch.from_numpy(rng.standard_normal((2 * SR, 2)).astype(np.float32) * 0.2)
