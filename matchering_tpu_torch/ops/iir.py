@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from .. import trace
 from ..kernels import scan, sos
 from ..utils import RowInts, resolve_device, stage_host_arrays, torch_dtype
 
@@ -199,7 +200,8 @@ def _filtfilt_rows(
     state enters the reverse pass as its per-row ``zi`` at the row's last
     sample.  The JAX package injects that state as a one-hot drive impulse
     at a traced position; a per-row start gives the same result.  Needs
-    every L >= 7 (checked by the caller on the host)."""
+    every L >= 7 (checked by the caller on the host).  The tail extension
+    is the span ``length_tail``, timed on the device."""
     padlen = _PADLEN
     b0, b1, a1 = filt
     zi_coef = filt.zi()
@@ -207,24 +209,25 @@ def _filtfilt_rows(
     ext_lengths = lengths.plus(padlen)
     y_fwd = lfilter_first_order(filt, ext, zi=zi_coef * ext[:, :1], lengths=ext_lengths)
 
-    # x[L-7 .. L-1] and the forward output at x[L-1], per row, in float64
-    ends = lengths.device[:, None]
-    xs = torch.gather(x, 1, ends - 7 + torch.arange(7, device=x.device)).to(torch.float64)
-    y_last = torch.gather(y_fwd, 1, ends + (padlen - 1))[:, 0].to(torch.float64)
-    # forward DF2T state at L-1 recovered from the output: z = b1*x - a1*y,
-    # then the forward steps over the tail extension 2*x[L-1] - x[L-2 .. L-7]
-    state = b1 * xs[:, 6] - a1 * y_last
-    y_ext = []
-    for k in range(padlen):
-        sample = 2.0 * xs[:, 6] - xs[:, 5 - k]
-        yk = b0 * sample + state
-        state = b1 * sample - a1 * yk
-        y_ext.append(yk)
-    # the backward pass over the extension, from scipy's zi * y[-1]
-    state = zi_coef * y_ext[-1]
-    for k in range(padlen - 1, -1, -1):
-        yb = b0 * y_ext[k] + state
-        state = b1 * y_ext[k] - a1 * yb
+    with trace.span("length_tail", device=x.device):
+        # x[L-7 .. L-1] and the forward output at x[L-1], per row, in float64
+        ends = lengths.device[:, None]
+        xs = torch.gather(x, 1, ends - 7 + torch.arange(7, device=x.device)).to(torch.float64)
+        y_last = torch.gather(y_fwd, 1, ends + (padlen - 1))[:, 0].to(torch.float64)
+        # forward DF2T state at L-1 recovered from the output: z = b1*x - a1*y,
+        # then the forward steps over the tail extension 2*x[L-1] - x[L-2 .. L-7]
+        state = b1 * xs[:, 6] - a1 * y_last
+        y_ext = []
+        for k in range(padlen):
+            sample = 2.0 * xs[:, 6] - xs[:, 5 - k]
+            yk = b0 * sample + state
+            state = b1 * sample - a1 * yk
+            y_ext.append(yk)
+        # the backward pass over the extension, from scipy's zi * y[-1]
+        state = zi_coef * y_ext[-1]
+        for k in range(padlen - 1, -1, -1):
+            yb = b0 * y_ext[k] + state
+            state = b1 * y_ext[k] - a1 * yb
     y = lfilter_first_order(filt, y_fwd, zi=state, reverse=True, lengths=ext_lengths)
     return y[:, padlen:]
 

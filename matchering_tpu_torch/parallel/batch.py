@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import trace
 from ..config import Config
 from ..stages import MasterOutput, check_lengths, master_graph
 from ..state import operators_for_config
@@ -47,18 +48,20 @@ def bucket_pad(
 
     The tracks must share one dtype: stacking raw integer PCM with floats
     would promote the codes unscaled (convert first, as ``process_batch``
-    does with ``basics.to_working_float``)."""
+    does with ``basics.to_working_float``).  The span ``bucket``, timed
+    on the device."""
     device = resolve_device(device)
     lengths = [int(t.shape[0]) for t in tracks]
     n_pad = -(-max(lengths) // multiple) * multiple
     batch = None
-    for i, track in enumerate(tracks):
-        track = to_device(track, device)
-        if batch is None:
-            batch = track.new_zeros((len(tracks), n_pad) + tuple(track.shape[1:]))
-        if track.dtype != batch.dtype:
-            raise ValueError(f"tracks of one bucket must share a dtype: {track.dtype} and {batch.dtype}")
-        batch[i, : lengths[i]] = track
+    with trace.span("bucket", device=device):
+        for i, track in enumerate(tracks):
+            track = to_device(track, device)
+            if batch is None:
+                batch = track.new_zeros((len(tracks), n_pad) + tuple(track.shape[1:]))
+            if track.dtype != batch.dtype:
+                raise ValueError(f"tracks of one bucket must share a dtype: {track.dtype} and {batch.dtype}")
+            batch[i, : lengths[i]] = track
     return batch, lengths
 
 
@@ -89,7 +92,13 @@ def master_batch(
     the B rows are cut into ``shape["pairs"]`` consecutive runs, run p a
     graph on the first device of the mesh's row p (a JAX mesh replicates
     the rows over its ``time`` axis), and the outputs are gathered on the
-    mesh's first device; ``device`` is then not used."""
+    mesh's first device; ``device`` is then not used.
+
+    The span ``batch``, timed on the device: the lengths' and tracks'
+    staging and the graph (one per row of a mesh).  Counters: ``batch.rows``
+    (B), ``batch.padded_samples`` (B x (n + m), both roles) and
+    ``batch.true_samples`` (the sum of every row's true lengths, both
+    roles; the padded lengths where none are given)."""
     if mesh is not None:
         return _master_batch_over_mesh(
             targets, references, config, mesh, need_default, need_no_limiter,
@@ -100,25 +109,27 @@ def master_batch(
         raise ValueError("targets and references differ in count")
     if (target_lengths is None) != (reference_lengths is None):
         raise ValueError("pass both target_lengths and reference_lengths, or neither")
-    if target_lengths is not None:  # checked on the host, then staged
-        target_lengths = RowInts.of(
-            check_lengths(target_lengths, targets.shape[1], config, "target"), device
+    rows, n, m = len(targets), targets.shape[1], references.shape[1]
+    with trace.span("batch", device=device):
+        if target_lengths is None:
+            true_samples = rows * (n + m)
+        else:  # checked on the host, then staged
+            target_lengths = RowInts.of(check_lengths(target_lengths, n, config, "target"), device)
+            reference_lengths = RowInts.of(check_lengths(reference_lengths, m, config, "reference"), device)
+            true_samples = sum(target_lengths.host) + sum(reference_lengths.host)
+        trace.count("batch.rows", rows)
+        trace.count("batch.padded_samples", rows * (n + m))
+        trace.count("batch.true_samples", true_samples)
+        return master_graph(
+            to_device(targets, device),
+            to_device(references, device),
+            config,
+            need_default=need_default,
+            need_no_limiter=need_no_limiter,
+            need_no_limiter_normalized=need_no_limiter_normalized,
+            target_length=target_lengths,
+            reference_length=reference_lengths,
         )
-        reference_lengths = RowInts.of(
-            check_lengths(reference_lengths, references.shape[1], config, "reference"), device
-        )
-    targets = to_device(targets, device)
-    references = to_device(references, device)
-    return master_graph(
-        targets,
-        references,
-        config,
-        need_default=need_default,
-        need_no_limiter=need_no_limiter,
-        need_no_limiter_normalized=need_no_limiter_normalized,
-        target_length=target_lengths,
-        reference_length=reference_lengths,
-    )
 
 
 def _master_batch_over_mesh(

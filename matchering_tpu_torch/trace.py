@@ -14,7 +14,11 @@ dict, and ``counts()`` a snapshot of it.  The port counts
   into the block they are staged from (``io.loader.load_staged``): in a
   ``process()`` of two 16-bit WAVs, all of its ``h2d_bytes``;
 * ``d2h_bytes``: the bytes read back to the host (``utils.to_host`` and
-  every host read).
+  every host read);
+* ``batch.rows``, ``batch.padded_samples``, ``batch.true_samples``: the
+  rows of each ``parallel.batch.master_batch`` graph, and the samples per
+  channel of its padded targets and references and of their true
+  lengths, both roles summed.
 
 Spans record only while a ``torch.profiler`` session records, or inside
 ``with recording():``.  The choice is made when a call's root span opens,
