@@ -35,7 +35,7 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    the written file; prints the warm run's timeline of log events, the
    bytes one more warm run copies each way, counted under the profiler
    by a dispatch mode beside the trace's copy records (about one copy of
-   each track to the card, one float32 copy of the result back)
+   each track to the card, the result's PCM_16 codes back)
    and a profile of one ``master`` call (device time by op, and the
    device's busy share of its wall time), in which each K2 call must be a
    single kernel.  In every ``process()`` and ``process_batch`` run of
@@ -49,7 +49,7 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    ``process()`` twice (cold, warm) with both previews and a PCM_24 AIFF
    result, counting kernel launches, and prints the warm run's timeline
    and the bytes a third run copies each way (each track once; the
-   float32 master and preview pieces back);
+   float32 master and the preview pieces' PCM_16 codes back);
    checks that the preview window chosen on the card is the one the CPU
    chooses on the card's result; runs ``python3 -m matchering_tpu_torch``
    on the pair and checks its outputs;
@@ -61,7 +61,8 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    pipelined, 1 and 4 vmapped, no K3), its wall time, pairs and audio seconds per
    wall second, peak device memory and the warm runs' event timelines;
    the bytes one more run of each dispatch copies each way (each job's
-   tracks once; one float32 copy per written variant and preview piece);
+   tracks once; back, the payload's codes of each written variant and
+   preview piece);
    holds every job's PCM_16 file to what ``process()`` on the card writes
    for the pair (one LSB); runs the dynamic ``master_graph`` on the staged
    batch under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync),
@@ -212,7 +213,12 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    counter's, and its ``load``, ``check``, ``equality``, ``graph``,
    ``fetch`` and ``encode`` spans >= 95 % of its wall time, and every byte
    it staged read straight from its file into the page-locked block it
-   crossed from (``direct_bytes`` equal to ``h2d_bytes``); two tracks of
+   crossed from (``direct_bytes`` equal to ``h2d_bytes``), and its
+   result's PCM_16 payload written from the block its codes crossed into
+   (``direct_out_bytes`` equal to the payload); a 240 s float32 result on
+   the card saved as WAV at PCM_16, PCM_24, PCM_32 and FLOAT, each file
+   the native writer's for the same samples and each payload counted in
+   ``direct_out_bytes`` (:func:`direct_write`); two tracks of
    one page-locked size class staged back to back behind a busy card
    (:func:`staging_reuse`), the first still holding its file's codes once
    the card has run; one recorded
@@ -524,9 +530,11 @@ def traced_run(torch, label, fn, pairs, tracks_bytes, written_bytes):
     on ``pairs`` pairs) with its copies counted (``transfer_bytes``): its
     equality checks must compare CUDA tensors, and it must copy about one
     copy of each track to the card (``tracks_bytes``, as decoded; scalars
-    and small tables on top) and one float32 copy of each written variant
-    and preview piece back (``written_bytes``; scalars on top).  Returns
-    the counts."""
+    and small tables on top) and one copy of each written variant and
+    preview piece back (``written_bytes``; scalars on top): the payload's
+    codes of a WAV file of a subtype the card quantises
+    (``io.saver.writes_codes``), else the float32 samples.  Returns the
+    counts."""
     def run():
         EQUALITY_INPUTS.clear()
         fn()
@@ -605,13 +613,13 @@ def user_path(mt, torch, device, config, here, cuda_ms, run_process, bandwidth, 
         numbers["realtime_factor_warm"] = FULL_SECONDS / runs[-1]["wall_s"]
         numbers["warm_timeline"] = timeline
         # the int16 target and the int32 (PCM_24) reference in; the float32
-        # master and its two preview pieces out
+        # master (AIFF) and its two preview pieces' PCM_16 codes out
         numbers["transfers"] = traced_run(
             torch, "user path process()",
             lambda: mt.process(path["t.wav"], path["r48.wav"], [mt.pcm24(path["master.aiff"])], config,
                                mt.pcm16(path["pt.wav"]), mt.pcm16(path["pr.wav"]), device="cuda"),
             1, FULL_N * 2 * 2 + FULL_SECONDS * USER_RATE * 2 * 4,
-            FULL_N * 2 * 4 + 2 * config.preview_size * 2 * 4,
+            FULL_N * 2 * 4 + 2 * config.preview_size * 2 * 2,
         )
         master, rate = codecs.read(path["master.aiff"])
         require(rate == SR and master.shape == (FULL_N, 2), f"the AIFF master is {master.shape} at {rate} Hz")
@@ -845,8 +853,8 @@ def farm_path(mt, torch, device, config, recorder, tmp):
     numbers["warm_timelines"] = timelines
 
     # one warm run of each dispatch under the profiler: each job's int16
-    # tracks to the card once; back, each job's float32 PCM_16 variant, job
-    # 1's raw variant and job 0's two preview pieces
+    # tracks to the card once; back, each job's PCM_16 codes, job 1's raw
+    # variant as FLOAT codes and job 0's two preview pieces' PCM_16 codes
     t_n = [int(seconds * SR) for seconds in t_seconds]
     r_n = [int(seconds * SR) for seconds in r_seconds]
     numbers["transfers"] = {}
@@ -855,7 +863,7 @@ def farm_path(mt, torch, device, config, recorder, tmp):
             torch, f"{dispatch} process_batch",
             lambda: mt.process_batch(jobs(f"{dispatch}_traced_"), config, dispatch=dispatch, device=device),
             FARM_JOBS, 2 * 2 * (sum(t_n) + sum(r_n)),
-            2 * 4 * (sum(t_n) + t_n[1]) + 2 * config.preview_size * 2 * 4,
+            2 * 2 * sum(t_n) + 2 * 4 * t_n[1] + 2 * config.preview_size * 2 * 2,
         )
 
     # every job's PCM_16 master against process() on the card
@@ -2516,6 +2524,45 @@ def staging_reuse(mt, torch, device, paths):
             "host_cache_emptied": empty is not None, "queued_at_second_ingest": queued}
 
 
+def direct_write(torch, device, tmp):
+    """A 240 s float32 result on the card (``make_pair``'s target at 1.1
+    times its level, so some samples clip) written by ``io.saver.save`` at
+    each subtype the card quantises: each file must be the native writer's
+    for the same samples fetched as float32 (``binding.write_wav``, which
+    widens them to float64), and its payload must count in
+    ``direct_out_bytes``.  Times each way once warm (host clock, ms).
+    Returns the phase's numbers."""
+    from matchering_tpu_torch import trace
+    from matchering_tpu_torch.io import pcm, saver
+    from matchering_tpu_torch.io.native import binding
+
+    require(binding.available(), "phase 18: the native codec is not available")
+    samples = 1.1 * make_pair(TRACE_SECONDS[0], SR, SEED + 23)[0]
+    result = torch.from_numpy(samples.astype(np.float32)).to(device)
+    host = result.cpu().numpy()
+    numbers = {"frames": int(result.shape[0])}
+    for subtype in saver.DIRECT_SUBTYPES:
+        got, want = os.path.join(tmp, "direct.wav"), os.path.join(tmp, "native.wav")
+        ms = {"direct": [], "native": []}
+        for _ in range(2):
+            before = trace.counts().get("direct_out_bytes", 0)
+            begin = time.perf_counter()
+            saver.save(got, result, SR, subtype)
+            ms["direct"].append(1e3 * (time.perf_counter() - begin))
+            written = trace.counts().get("direct_out_bytes", 0) - before
+            begin = time.perf_counter()
+            binding.write_wav(want, host, SR, subtype)
+            ms["native"].append(1e3 * (time.perf_counter() - begin))
+        payload = result.numel() * pcm.SUBTYPES[subtype]
+        with open(got, "rb") as f, open(want, "rb") as g:
+            same = f.read() == g.read()
+        require(same, f"phase 18: the card's {subtype} file differs from the native writer's")
+        require(written == payload, f"phase 18: {subtype}: {written} direct_out_bytes for a {payload}-byte payload")
+        numbers[subtype] = {"payload_bytes": payload, "direct_ms_warm": ms["direct"][-1],
+                            "native_ms_warm": ms["native"][-1]}
+    return numbers
+
+
 def trace_path(mt, torch, device, card):
     """Phase 18: the port's spans and counters (``trace``) on the card
     (see the module's docstring).  ``card``: the card's name and power
@@ -2599,9 +2646,15 @@ def trace_path(mt, torch, device, card):
         direct = root.counters.get("direct_bytes", 0)
         require(direct == counters["h2d_bytes"],
                 f"phase 18: process() read {direct} bytes straight into staging memory of {counters['h2d_bytes']} staged")
+        payload = wav.read(paths[2], raw_int=True)[0].nbytes
+        direct_out = root.counters.get("direct_out_bytes", 0)
+        require(direct_out == payload,
+                f"phase 18: process() wrote {direct_out} bytes straight from the codes' block of a {payload}-byte payload")
         numbers["song"] = {"names": [s.name for s in spans], "root_ms": root_ms, "spans_ms": spans_ms,
                            "host_spans_cover": covered, "counters": counters, "direct_bytes": direct,
-                           "syncs": syncs, "copy_counter": moved, "recording_ms": in_turns(song)}
+                           "direct_out_bytes": direct_out, "syncs": syncs, "copy_counter": moved,
+                           "recording_ms": in_turns(song)}
+        numbers["direct_write"] = direct_write(torch, device, tmp)
         second = os.path.join(tmp, "second.wav")
         wav.write(second, make_pair(REUSE_SECONDS, SR, SEED + 22)[0], SR, "PCM_16")
         numbers["staging_reuse"] = staging_reuse(mt, torch, device, (paths[0], second))
@@ -2934,7 +2987,7 @@ def main() -> None:
     transfers = traced_run(
         torch, "process()",
         lambda: mt.process(target_path, reference_path, [mt.pcm16(out_path)], device="cuda"),
-        1, 2 * FULL_N * 2 * 2, FULL_N * 2 * 4,
+        1, 2 * FULL_N * 2 * 2, FULL_N * 2 * 2,
     )
     # the device's share of master(): one profiled call on the staged int16 pair
     target_pcm, _ = mt.load(target_path, "target", raw_int=True)

@@ -17,6 +17,7 @@ from . import trace
 from .checker import check, check_equality
 from .config import Config
 from .io import save
+from .io.saver import writes_codes
 from .io.loader import load_staged
 from .log import Code, ModuleError, debug, debug_line, info
 from .preview import create_preview
@@ -85,18 +86,24 @@ def render_variants(target_audio, reference_audio, config: Config, keys, *, devi
 
 
 def _export(results: List[Result], variants: Dict[str, torch.Tensor], config: Config) -> None:
-    """Write each result from its variant (``render_variants``' dict).
-    Each variant crosses to the host once, at its working dtype
-    (``to_host``); the writers widen the samples to float64 where they
-    quantise, so the bytes are those of a float64 export."""
+    """Write each result from its variant (``render_variants``' dict).  A
+    WAV result of a subtype the card quantises (``saver.writes_codes``)
+    gets its variant as a tensor: ``save`` quantises it on its device and
+    its codes cross to the host, once per result.  Any other result's
+    variant crosses once, at its working dtype (``to_host``), and the
+    writers widen the samples to float64 where they quantise.  Either way
+    the bytes are those of a float64 export."""
     host = {}
     for result in results:
         key = _variant_key(result)
-        if key not in host:
-            if variants.get(key) is None:  # unreachable: the graph renders every key asked for
-                raise ModuleError(Code.ERROR_VALIDATION)
-            host[key] = to_host(variants[key])
-        save(result.file, host[key], config.internal_sample_rate, result.subtype)
+        if variants.get(key) is None:  # unreachable: the graph renders every key asked for
+            raise ModuleError(Code.ERROR_VALIDATION)
+        samples = variants[key]
+        if not writes_codes(result.file, samples, result.subtype):
+            if key not in host:
+                host[key] = to_host(samples)
+            samples = host[key]
+        save(result.file, samples, config.internal_sample_rate, result.subtype)
 
 
 def process(

@@ -169,6 +169,57 @@ def read_pcm_into(f, layout: PcmLayout, out: np.ndarray) -> None:
         filled += n
 
 
+def header(subtype: str, frames: int, channels: int, sample_rate: int) -> bytes:
+    """The bytes of a WAV file of ``frames`` x ``channels`` samples coded as
+    ``subtype`` that precede its payload: the RIFF header (its size counts
+    the pad byte after an odd payload), ``fmt `` of 16 bytes, a ``fact``
+    chunk for every encoding but integer PCM, and the ``data`` chunk's
+    header.  ``write`` and ``write_payload`` write it; the native writer
+    (``io/native/codec.cpp``) lays out the same bytes."""
+    if subtype not in pcm.ENCODERS:
+        raise WavFormatError(f"unsupported WAV subtype: {subtype}")
+    width = pcm.SUBTYPES[subtype]
+    tag = {
+        "FLOAT": WAVE_FORMAT_IEEE_FLOAT,
+        "DOUBLE": WAVE_FORMAT_IEEE_FLOAT,
+        "ALAW": WAVE_FORMAT_ALAW,
+        "ULAW": WAVE_FORMAT_MULAW,
+    }.get(subtype, WAVE_FORMAT_PCM)
+    payload_bytes = frames * channels * width
+    block_align = channels * width
+    fmt_body = struct.pack("<HHIIHH", tag, channels, sample_rate, sample_rate * block_align, block_align, 8 * width)
+    # non-PCM WAVs (float, G.711) conventionally carry a fact chunk with the
+    # frame count
+    fact = struct.pack("<4sII", b"fact", 4, frames) if tag != WAVE_FORMAT_PCM else b""
+    chunks = struct.pack("<4sI", b"fmt ", len(fmt_body)) + fmt_body + fact
+    riff_size = 4 + len(chunks) + 8 + payload_bytes + (payload_bytes & 1)
+    return struct.pack("<4sI4s", b"RIFF", riff_size, b"WAVE") + chunks + struct.pack("<4sI", b"data", payload_bytes)
+
+
+def write_payload(path: str, payload, frames: int, channels: int, sample_rate: int, subtype: str) -> int:
+    """Write a WAV file whose payload is ``payload``, any C-contiguous
+    buffer that holds the little-endian codes of ``frames`` x ``channels``
+    samples as ``subtype`` codes them: the header, the payload and the pad
+    byte after an odd payload go out with one gathered write, the payload
+    from the buffer itself.  Returns the payload's bytes."""
+    data = memoryview(payload).cast("B")
+    head = header(subtype, frames, channels, sample_rate)
+    if len(data) != frames * channels * pcm.SUBTYPES[subtype]:
+        raise WavFormatError(f"a payload of {len(data)} bytes for {frames} x {channels} {subtype} samples")
+    parts = [part for part in (head, data, b"\x00"[: len(data) & 1]) if len(part)]
+    with open(path, "wb", buffering=0) as f:
+        while parts:
+            wrote = os.writev(f.fileno(), parts)
+            if not wrote:
+                raise OSError(f"no byte of '{path}' could be written")
+            while parts and wrote >= len(parts[0]):  # a write may stop short: go on from there
+                wrote -= len(parts[0])
+                parts.pop(0)
+            if parts and wrote:
+                parts[0] = memoryview(parts[0])[wrote:]
+    return len(data)
+
+
 def write(path: str, array: np.ndarray, sample_rate: int, subtype: str = "PCM_16") -> None:
     """Write a float array of shape (n, channels) as a WAV file."""
     array = np.asarray(array)
@@ -176,36 +227,5 @@ def write(path: str, array: np.ndarray, sample_rate: int, subtype: str = "PCM_16
         array = array[:, None]
     if subtype not in pcm.ENCODERS:
         raise WavFormatError(f"unsupported WAV subtype: {subtype}")
-
-    channels = array.shape[1]
-    bits = pcm.SUBTYPES[subtype] * 8
-    tag = {
-        "FLOAT": WAVE_FORMAT_IEEE_FLOAT,
-        "DOUBLE": WAVE_FORMAT_IEEE_FLOAT,
-        "ALAW": WAVE_FORMAT_ALAW,
-        "ULAW": WAVE_FORMAT_MULAW,
-    }.get(subtype, WAVE_FORMAT_PCM)
     payload = pcm.ENCODERS[subtype](array.reshape(-1))
-
-    block_align = channels * (bits // 8)
-    byte_rate = sample_rate * block_align
-    fmt_body = struct.pack("<HHIIHH", tag, channels, sample_rate, byte_rate, block_align, bits)
-    # non-PCM WAVs (float, G.711) conventionally carry a fact chunk with the
-    # frame count
-    fact = (
-        struct.pack("<4sII", b"fact", 4, array.shape[0])
-        if tag != WAVE_FORMAT_PCM
-        else b""
-    )
-    chunks = (
-        struct.pack("<4sI", b"fmt ", len(fmt_body))
-        + fmt_body
-        + fact
-        + struct.pack("<4sI", b"data", len(payload))
-        + payload
-    )
-    if len(payload) & 1:
-        chunks += b"\x00"
-    with open(path, "wb") as f:
-        f.write(struct.pack("<4sI4s", b"RIFF", 4 + len(chunks), b"WAVE"))
-        f.write(chunks)
+    write_payload(path, payload, array.shape[0], array.shape[1], sample_rate, subtype)

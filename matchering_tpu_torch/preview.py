@@ -17,7 +17,7 @@ from .io import save
 from .log import Code, debug, debug_line, info
 from .ops import basics
 from .results import Result
-from .utils import time_str, to_device, to_host
+from .utils import time_str, to_device
 
 
 def _window_count(n: int, window: int, step: int) -> int:
@@ -125,7 +125,7 @@ def create_preview(
         if output:
             save(
                 output.file,
-                to_host(piece),
+                piece,
                 config.internal_sample_rate,
                 output.subtype,
                 name,

@@ -13,8 +13,12 @@ dict, and ``counts()`` a snapshot of it.  The port counts
 * ``direct_bytes``: the bytes of integer-PCM WAV payloads read straight
   into the block they are staged from (``io.loader.load_staged``): in a
   ``process()`` of two 16-bit WAVs, all of its ``h2d_bytes``;
-* ``d2h_bytes``: the bytes read back to the host (``utils.to_host`` and
-  every host read);
+* ``d2h_bytes``: the bytes read back to the host (``utils.host_copy``,
+  the codes of a WAV result or a variant at its dtype, and every host
+  read);
+* ``direct_out_bytes``: the bytes of WAV payloads written to their file
+  straight from the block their codes crossed into (``io.saver.save``):
+  in a ``process()`` of one PCM_16 WAV result, its codes' ``d2h_bytes``;
 * ``batch.rows``, ``batch.padded_samples``, ``batch.true_samples``: the
   rows of each ``parallel.batch.master_batch`` graph, and the samples per
   channel of its padded targets and references and of their true

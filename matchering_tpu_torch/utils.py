@@ -220,16 +220,23 @@ def to_device(array, device):
 
 
 def to_host(tensor):
-    """A tensor's values as a host numpy array, at its dtype.  From a card
-    they are copied once, into page-locked memory (the caching host
-    allocator's): a copy into fresh pageable memory runs at a fraction of
-    the link's rate.  The span ``fetch``; one ``read_back``."""
+    """A tensor's values as a host numpy array, at its dtype
+    (``host_copy``).  The span ``fetch``."""
+    with trace.span("fetch"):
+        return host_copy(tensor)
+
+
+def host_copy(tensor):
+    """A tensor's values as a C-contiguous host numpy array, at its dtype.
+    From a card they are copied once, into page-locked memory (the caching
+    host allocator's, reused from call to call): a copy into fresh
+    pageable memory runs at a fraction of the link's rate.  A CPU tensor's
+    own memory where it is C-contiguous.  One ``read_back``."""
     import torch
 
-    with trace.span("fetch"):
-        read_back(tensor)
-        if tensor.device.type == "cpu":
-            return tensor.numpy()
-        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
-        host.copy_(tensor)
-        return host.numpy()
+    read_back(tensor)
+    if tensor.device.type == "cpu":
+        return tensor.contiguous().numpy()
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    host.copy_(tensor)
+    return host.numpy()

@@ -224,7 +224,7 @@ def test_ffmpeg_staging_widens_float32(tmp_path, monkeypatch):
 CONFIG = mt.Config(fft_size=1024)
 PROCESS_OUTPUTS = [
     (ext, s) for ext in ("wav", "aiff", "w64", "caf") for s in ("PCM_16", "PCM_24", "FLOAT")
-] + [("flac", "PCM_16"), ("flac", "PCM_24")]
+] + [("wav", "PCM_32"), ("flac", "PCM_16"), ("flac", "PCM_24")]
 
 
 @pytest.fixture(scope="module")

@@ -116,8 +116,9 @@ def test_the_counters_of_a_call_follow_from_its_shapes(pair, reference):
     equal_shapes = n_reference == n_target  # check_equality reads its verdict back only then
     assert root.counters["host_reads"] == REPORT_VALUES + 2 + 1 + equal_shapes
     assert root.counters["h2d_bytes"] == 2 * 2 * (n_target + n_reference)  # int16 codes, stereo
-    # the float32 result, the report's float32 values, the float64 peak and its int64 count, the verdict
-    assert root.counters["d2h_bytes"] == 4 * 2 * n_target + 4 * REPORT_VALUES + 8 + 8 + equal_shapes
+    # the result's int16 codes, the report's float32 values, the float64 peak and its int64 count, the verdict
+    assert root.counters["d2h_bytes"] == 2 * 2 * n_target + 4 * REPORT_VALUES + 8 + 8 + equal_shapes
+    assert root.counters["direct_out_bytes"] == 2 * 2 * n_target  # the PCM_16 payload, written from its block
     assert not any(root.counters.get(f"launch.k{i}") for i in (1, 2, 3))
 
 
