@@ -114,13 +114,14 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    time, pairs per second, peak device memory and launches (1 K1, 4 K2,
    0 K3: one batched graph over its 4 rows), each file within one LSB of
    phase 7's ``process()`` file for the job;
-11. the codecs (``io/native``): the native codec must have built (its
-   build time is reported); phase 4's
+11. the codecs (``io/native``): the native FLAC codec must have built
+   (its build time is reported); phase 4's
    180 s result round-trips through FLAC at PCM_16 and PCM_24 to the same
    codes as WAV; ``process()`` from a FLAC target to a FLAC PCM_24 result
-   within one PCM_24 step of the WAV run; the PCM_16 WAV encode by the
-   native and by the numpy writer (byte-identical), the FLAC encode and
-   decode, timed on the host; the FLAC run's warm timeline and the bytes
+   within one PCM_24 step of the WAV run; the PCM_16 WAV encode by
+   ``save``'s codes path and by the numpy writer (byte-identical), its
+   decode by the direct read and by the numpy reader (the same codes), the
+   FLAC encode and decode, timed on the host; the FLAC run's warm timeline and the bytes
    one more run copies each way (the float64 FLAC target once); which
    lossy libraries load, and a round trip through each that does
    (missing ones are reported, not failed);
@@ -217,7 +218,7 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    result's PCM_16 payload written from the block its codes crossed into
    (``direct_out_bytes`` equal to the payload); a 240 s float32 result on
    the card saved as WAV at PCM_16, PCM_24, PCM_32 and FLOAT, each file
-   the native writer's for the same samples and each payload counted in
+   the numpy writer's for the same samples and each payload counted in
    ``direct_out_bytes`` (:func:`direct_write`); two tracks of
    one page-locked size class staged back to back behind a busy card
    (:func:`staging_reuse`), the first still holding its file's codes once
@@ -1581,15 +1582,15 @@ def distributed_path(torch, here, farm_dir, farm):
 
 
 def codecs_path(mt, torch, run_process, phase4):
-    """Phase 11: the native codec and the lossy libraries (see the module's
+    """Phase 11: the codecs and the lossy libraries (see the module's
     docstring).  ``phase4``: the paths of phase 4's target, reference and
     ``process()`` output.  Returns the phase's numbers; fails on any
     mismatch."""
-    from matchering_tpu_torch.io import codecs, wav
+    from matchering_tpu_torch.io import codecs, loader, wav
     from matchering_tpu_torch.io.native import binding, mp3, opus, vorbis
 
     target_path, reference_path, process_out = phase4
-    # phase 4's first file loaded the codec, building it where it was missing
+    # the first FLAC use loads the codec, building it where it is missing
     require(binding.available(), "the native codec did not build (see the debug log)")
     numbers = {"native_build_s": binding.build_seconds, "library": binding._lib_path()}
     result, rate = codecs.read(process_out)
@@ -1626,15 +1627,18 @@ def codecs_path(mt, torch, run_process, phase4):
 
         # encode and decode times on the 180 s result (host)
         numbers["times_s"] = {
-            "wav_pcm16_encode_native": best_s(lambda: binding.write_wav(at("n.wav"), result, SR, "PCM_16")),
+            "wav_pcm16_encode_codes": best_s(lambda: mt.save(at("n.wav"), result, SR, "PCM_16")),
             "wav_pcm16_encode_numpy": best_s(lambda: wav.write(at("p.wav"), result, SR, "PCM_16")),
             "flac_pcm16_encode": best_s(lambda: binding.write_flac(at("f.flac"), result, SR, "PCM_16")),
             "flac_pcm16_decode": best_s(lambda: binding.read_flac(at("f.flac"))),
-            "wav_pcm16_decode_native": best_s(lambda: binding.read_wav(at("n.wav"))),
+            "wav_pcm16_decode_direct": best_s(lambda: loader.load_staged(at("n.wav"), "result", device="cpu")),
             "wav_pcm16_decode_numpy": best_s(lambda: wav.read(at("p.wav"))),
         }
         require(open(at("n.wav"), "rb").read() == open(at("p.wav"), "rb").read(),
-                "the native and numpy PCM_16 WAV writers disagree")
+                "save's codes path and the numpy PCM_16 WAV writer disagree")
+        require(np.array_equal(loader.load_staged(at("n.wav"), "result", device="cpu")[0],
+                               wav.read(at("p.wav"), raw_int=True)[0]),
+                "the direct PCM_16 WAV read and the numpy reader disagree")
 
         # process() from a FLAC target to a FLAC PCM_24 result, against WAV
         target, _ = codecs.read(target_path)
@@ -2527,23 +2531,21 @@ def staging_reuse(mt, torch, device, paths):
 def direct_write(torch, device, tmp):
     """A 240 s float32 result on the card (``make_pair``'s target at 1.1
     times its level, so some samples clip) written by ``io.saver.save`` at
-    each subtype the card quantises: each file must be the native writer's
-    for the same samples fetched as float32 (``binding.write_wav``, which
-    widens them to float64), and its payload must count in
+    each subtype the card quantises: each file must be the numpy writer's
+    for the same samples fetched as float32 (``wav.write``, which widens
+    them to float64), and its payload must count in
     ``direct_out_bytes``.  Times each way once warm (host clock, ms).
     Returns the phase's numbers."""
     from matchering_tpu_torch import trace
-    from matchering_tpu_torch.io import pcm, saver
-    from matchering_tpu_torch.io.native import binding
+    from matchering_tpu_torch.io import pcm, saver, wav
 
-    require(binding.available(), "phase 18: the native codec is not available")
     samples = 1.1 * make_pair(TRACE_SECONDS[0], SR, SEED + 23)[0]
     result = torch.from_numpy(samples.astype(np.float32)).to(device)
     host = result.cpu().numpy()
     numbers = {"frames": int(result.shape[0])}
     for subtype in saver.DIRECT_SUBTYPES:
-        got, want = os.path.join(tmp, "direct.wav"), os.path.join(tmp, "native.wav")
-        ms = {"direct": [], "native": []}
+        got, want = os.path.join(tmp, "direct.wav"), os.path.join(tmp, "numpy.wav")
+        ms = {"direct": [], "numpy": []}
         for _ in range(2):
             before = trace.counts().get("direct_out_bytes", 0)
             begin = time.perf_counter()
@@ -2551,15 +2553,15 @@ def direct_write(torch, device, tmp):
             ms["direct"].append(1e3 * (time.perf_counter() - begin))
             written = trace.counts().get("direct_out_bytes", 0) - before
             begin = time.perf_counter()
-            binding.write_wav(want, host, SR, subtype)
-            ms["native"].append(1e3 * (time.perf_counter() - begin))
+            wav.write(want, host, SR, subtype)
+            ms["numpy"].append(1e3 * (time.perf_counter() - begin))
         payload = result.numel() * pcm.SUBTYPES[subtype]
         with open(got, "rb") as f, open(want, "rb") as g:
             same = f.read() == g.read()
-        require(same, f"phase 18: the card's {subtype} file differs from the native writer's")
+        require(same, f"phase 18: the card's {subtype} file differs from the numpy writer's")
         require(written == payload, f"phase 18: {subtype}: {written} direct_out_bytes for a {payload}-byte payload")
         numbers[subtype] = {"payload_bytes": payload, "direct_ms_warm": ms["direct"][-1],
-                            "native_ms_warm": ms["native"][-1]}
+                            "numpy_ms_warm": ms["numpy"][-1]}
     return numbers
 
 
@@ -3082,7 +3084,7 @@ def main() -> None:
         # each process's warm run of master_batch_distributed over its 4 rows
         numbers["launches_distributed"] = [launches[index] for launches in per_process]
 
-    # --- 11. the codecs: FLAC, the native WAV writer, the lossy libraries ---
+    # --- 11. the codecs: FLAC, the WAV writers and readers, the lossy libraries ---
     codecs = codecs_path(mt, torch, run_process, (target_path, reference_path, out_path))
     print(json.dumps({"codecs_path": codecs}), flush=True)
     workdir.cleanup()

@@ -6,8 +6,8 @@ the role ``soundfile``'s format table plays for the reference
 containers to the subtypes they take and dispatches reads (on the file's
 magic bytes) and writes (on its extension) to the first backend that can:
 
-1. the native C++ codec (``io/native``: WAV and FLAC), when it is built;
-2. the numpy WAV/RF64/W64/AIFF/CAF codecs of this package;
+1. the numpy WAV/RF64/W64/AIFF/CAF codecs of this package;
+2. the native C++ FLAC codec (``io/native``), when it is built;
 3. the system libraries through ctypes: libvorbis for OGG/Vorbis, libmpg123
    and LAME for MP3, libopus for Ogg Opus, each read and write;
 4. an ``ffmpeg`` subprocess for the lossy formats those libraries cannot
@@ -92,19 +92,7 @@ def read(path: str, raw_int: bool = False) -> Tuple[np.ndarray, int]:
     """
     with open(path, "rb") as f:
         magic = f.read(16)  # 16 bytes: Wave64's riff GUID is the longest sniff
-    if len(magic) >= 12 and magic[:4] == b"RIFF" and magic[8:12] == b"WAVE":
-        if raw_int:
-            # the numpy codec is a complete WAV reader: integer PCM comes
-            # back as unscaled codes, everything else as float64
-            return wav.read(path, raw_int=True)
-        if native.available():
-            try:
-                return native.read_wav(path)
-            except (RuntimeError, OSError):
-                # encodings only the numpy codec knows (G.711 A-law/µ-law)
-                return wav.read(path)
-        return wav.read(path)
-    if len(magic) >= 12 and magic[:4] in (b"RF64", b"BW64") and magic[8:12] == b"WAVE":
+    if len(magic) >= 12 and magic[:4] in (b"RIFF", b"RF64", b"BW64") and magic[8:12] == b"WAVE":
         return wav.read(path, raw_int=raw_int)
     if len(magic) >= 12 and magic[:4] == b"FORM" and magic[8:12] in (b"AIFF", b"AIFC"):
         return aiff.read(path)
@@ -134,10 +122,6 @@ def write(path: str, array: np.ndarray, sample_rate: int, subtype: str) -> None:
     bytes."""
     ext = os.path.splitext(path)[1][1:].upper()
     if ext == "WAV":
-        if native.available() and subtype in ("PCM_16", "PCM_24", "PCM_32", "FLOAT"):
-            native.write_wav(path, array, sample_rate, subtype)
-            return
-        # DOUBLE/ALAW/ULAW subtypes go through the numpy codec
         wav.write(path, array, sample_rate, subtype)
     elif ext in ("AIFF", "AIF"):
         aiff.write(path, array, sample_rate, subtype)

@@ -2,8 +2,8 @@
 
 Counterpart of ``matchering_tpu.io.loader`` (reference
 ``matchering/loader.py:30-74``): any container the built-in codecs
-understand decodes directly (``codecs.read``: the native WAV and FLAC
-codec, the numpy containers, the system lossy libraries); anything else is
+understand decodes directly (``codecs.read``: the numpy containers,
+the native FLAC codec, the system lossy libraries); anything else is
 handed to an ``ffmpeg`` subprocess that rewrites it into a temporary WAV.
 A lossy source fires the role's advisory (``WARNING_TARGET_IS_LOSSY``,
 ``INFO_REFERENCE_IS_LOSSY``), and a coded ``ModuleError`` fires only after

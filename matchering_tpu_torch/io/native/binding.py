@@ -1,17 +1,18 @@
-"""ctypes binding for the native C++ codec: WAV and FLAC.
+"""ctypes binding for the native C++ codec: FLAC.
 
 Counterpart of ``matchering_tpu/io/native/binding.py``.  The native backend
-(``codec.cpp``, ``flac.cpp``) converts PCM <-> float64 in bulk and reads
-and writes the files for the host shell; FLAC has no other codec.  The
-writers also take float32 samples (``mtpu_*_write_f32``), which they widen
-to float64 before they quantise: the bytes are those of the float64
-entry with the same samples widened.  The
-library is the port's own, built with g++ from the sources beside this
-file into ``matchering_tpu_torch/_build/`` (``build.py``) at first use.
-Set ``MATCHERING_TPU_TORCH_NO_AUTOBUILD=1`` to forbid that build: without
-a built library WAV goes through the numpy codec and FLAC is refused
-(``codecs.check_format``).  A build that fails is reported as a ``debug``
-log line, with the compiler's message.
+(``flac.cpp``) converts PCM <-> float64 in bulk and reads and writes FLAC
+files for the host shell; FLAC has no other codec.  The writer also takes
+float32 samples (``mtpu_flac_write_f32``), which it widens to float64
+before it quantises: the bytes are those of the float64 entry with the
+same samples widened.  The port has one WAV codec, the numpy one
+(``io/wav.py``) with ``save``'s codes path: ``read_wav`` and ``write_wav``
+keep the JAX package's names and hand over to it.  The library is the
+port's own, built with g++ from the source beside this file into
+``matchering_tpu_torch/_build/`` (``build.py``) at first use.  Set
+``MATCHERING_TPU_TORCH_NO_AUTOBUILD=1`` to forbid that build: without a
+built library FLAC is refused (``codecs.check_format``).  A build that
+fails is reported as a ``debug`` log line, with the compiler's message.
 """
 
 from __future__ import annotations
@@ -25,14 +26,13 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ...log import debug
+from .. import wav
 from . import build as _build
 
 NO_AUTOBUILD_ENV = "MATCHERING_TPU_TORCH_NO_AUTOBUILD"
 _lib: Optional[ctypes.CDLL] = None
 _load_attempted = False
 build_seconds: Optional[float] = None  # wall time of this process's build, None if loaded
-
-_SUBTYPE_IDS = {"PCM_16": 0, "PCM_24": 1, "PCM_32": 2, "FLOAT": 3}
 
 
 def _lib_path() -> str:
@@ -47,7 +47,7 @@ def _load() -> Optional[ctypes.CDLL]:
     path = _lib_path()
     if not os.path.exists(path):
         if os.environ.get(NO_AUTOBUILD_ENV) == "1":
-            debug(f"native codec not built and {NO_AUTOBUILD_ENV}=1: WAV through numpy, no FLAC")
+            debug(f"native codec not built and {NO_AUTOBUILD_ENV}=1: no FLAC")
             return None
         start = time.perf_counter()
         try:
@@ -55,36 +55,13 @@ def _load() -> Optional[ctypes.CDLL]:
             build_seconds = time.perf_counter() - start
         except (OSError, subprocess.CalledProcessError) as error:
             detail = getattr(error, "stderr", None) or error
-            debug(f"native codec build failed, WAV through numpy and no FLAC: {detail}")
+            debug(f"native codec build failed, no FLAC: {detail}")
             return None
     try:
         lib = ctypes.CDLL(path)
     except OSError as error:
         debug(f"native codec did not load: {error}")
         return None
-    lib.mtpu_wav_probe.restype = ctypes.c_int
-    lib.mtpu_wav_probe.argtypes = [
-        ctypes.c_char_p,
-        ctypes.POINTER(ctypes.c_longlong),  # frames
-        ctypes.POINTER(ctypes.c_int),  # channels
-        ctypes.POINTER(ctypes.c_int),  # sample rate
-    ]
-    lib.mtpu_wav_read.restype = ctypes.c_int
-    lib.mtpu_wav_read.argtypes = [
-        ctypes.c_char_p,
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.c_longlong,
-    ]
-    for entry, sample in (("mtpu_wav_write", ctypes.c_double), ("mtpu_wav_write_f32", ctypes.c_float)):
-        getattr(lib, entry).restype = ctypes.c_int
-        getattr(lib, entry).argtypes = [
-            ctypes.c_char_p,
-            ctypes.POINTER(sample),
-            ctypes.c_longlong,  # frames
-            ctypes.c_int,  # channels
-            ctypes.c_int,  # sample rate
-            ctypes.c_int,  # subtype id
-        ]
     lib.mtpu_flac_probe.restype = ctypes.c_int
     lib.mtpu_flac_probe.argtypes = [
         ctypes.c_char_p,
@@ -139,39 +116,19 @@ def _writer(lib: ctypes.CDLL, entry: str, array):
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
-    lib = _loaded()
-    frames = ctypes.c_longlong()
-    channels = ctypes.c_int()
-    rate = ctypes.c_int()
-    rc = lib.mtpu_wav_probe(
-        path.encode(), ctypes.byref(frames), ctypes.byref(channels), ctypes.byref(rate)
-    )
-    if rc != 0:
-        raise RuntimeError(f"unknown format: '{os.path.basename(path)}' (rc={rc})")
-    out = np.empty((frames.value, channels.value), dtype=np.float64)
-    rc = lib.mtpu_wav_read(
-        path.encode(),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        frames.value * channels.value,
-    )
-    if rc != 0:
-        raise RuntimeError(f"native WAV read failed (rc={rc})")
-    return out, rate.value
+    """Decode a WAV file -> (float64 (n, ch), rate): ``wav.read``, the
+    port's one WAV reader."""
+    return wav.read(path)
 
 
 def write_wav(path: str, array: np.ndarray, sample_rate: int, subtype: str) -> None:
-    """Encode float32 or float64 (n, ch) audio as WAV (PCM_16/24/32, FLOAT)."""
-    write, array, samples = _writer(_loaded(), "mtpu_wav_write", array)
-    rc = write(
-        path.encode(),
-        samples,
-        array.shape[0],
-        array.shape[1],
-        sample_rate,
-        _SUBTYPE_IDS[subtype],
-    )
-    if rc != 0:
-        raise RuntimeError(f"native WAV write failed (rc={rc})")
+    """Encode (n, ch) audio as WAV (PCM_16/24/32, FLOAT), float32 samples
+    as they are and any other as float64: ``save``'s codes path
+    (``saver.write_codes``), the port's one WAV writer."""
+    from ..saver import write_codes  # saver imports this module through codecs
+
+    array = np.asarray(array)
+    write_codes(path, array if array.dtype == np.float32 else array.astype(np.float64), sample_rate, subtype)
 
 
 def read_flac(path: str) -> Tuple[np.ndarray, int]:

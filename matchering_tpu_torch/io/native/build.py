@@ -20,7 +20,7 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(HERE, "codec.cpp"), os.path.join(HERE, "flac.cpp")]
+SOURCES = [os.path.join(HERE, "flac.cpp")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(HERE)), "_build")
 FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 

@@ -174,8 +174,7 @@ def header(subtype: str, frames: int, channels: int, sample_rate: int) -> bytes:
     ``subtype`` that precede its payload: the RIFF header (its size counts
     the pad byte after an odd payload), ``fmt `` of 16 bytes, a ``fact``
     chunk for every encoding but integer PCM, and the ``data`` chunk's
-    header.  ``write`` and ``write_payload`` write it; the native writer
-    (``io/native/codec.cpp``) lays out the same bytes."""
+    header.  ``write`` and ``write_payload`` write it."""
     if subtype not in pcm.ENCODERS:
         raise WavFormatError(f"unsupported WAV subtype: {subtype}")
     width = pcm.SUBTYPES[subtype]

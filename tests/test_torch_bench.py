@@ -32,18 +32,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the calls of many small ops below: the
-    test workers' pools of every core spin against each other (a
-    ``dryrun_multichip(8)`` took ~1 s on one thread and ~67 s on eight
-    with six such processes at once)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _close(got: float, want: float) -> bool:
     """Equal to float32 rounding: one float32 ulp relative."""
     return abs(got - want) <= 2.0**-23 * abs(want)
@@ -106,7 +94,7 @@ def test_longform_tracks_are_the_jax_tools():
 # --- bench_torch: the graph, the rounds, the command ---
 
 
-def test_bench_graph_checksum_is_the_graphs(one_thread):
+def test_bench_graph_checksum_is_the_graphs():
     """bench's graph on an 8 s pair: the checksum of ``master_graph``
     (operators of the config staged by the graph itself) at ``s = 1``, bit
     for bit."""
@@ -121,7 +109,7 @@ def test_bench_graph_checksum_is_the_graphs(one_thread):
     assert driver.single(1) == want.item()
 
 
-def test_bench_round_is_the_sum_of_its_pairs(one_thread):
+def test_bench_round_is_the_sum_of_its_pairs():
     driver = bench_torch.Bench(bench_torch.make_pairs(2, 2), 2, device="cpu")
     perpair = driver.run_perpair(5)
     assert len(perpair) == 2 and all(v > 0 for v in perpair)
@@ -136,11 +124,10 @@ def test_bench_round_is_the_sum_of_its_pairs(one_thread):
 
 
 def test_bench_command_prints_one_line_and_writes_nothing(tmp_path):
-    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
     run = subprocess.run(
         [sys.executable, os.path.join(REPO, "bench_torch.py"), "--device", "cpu", "--pairs", "2",
          "--seconds", "2", "--reps", "1"],
-        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
+        cwd=tmp_path, capture_output=True, text=True, timeout=300,
     )
     assert run.returncode == 0, run.stderr
     lines = run.stdout.strip().splitlines()
@@ -158,7 +145,7 @@ def test_bench_command_prints_one_line_and_writes_nothing(tmp_path):
 # --- tools_record_bench_torch: stages, sweep, long form, command ---
 
 
-def test_stages_chained_are_the_graph(one_thread):
+def test_stages_chained_are_the_graph():
     """The four stages, chained at float64 with the unfolded operators (the
     device LOWESS runs between the products), give ``master_graph``'s
     result bit for bit."""
@@ -178,7 +165,7 @@ def test_stages_chained_are_the_graph(one_thread):
     assert carry[0].dtype == torch.float64 and torch.equal(carry[0], want)
 
 
-def test_batch_sweep_checksum_is_the_pairs(one_thread):
+def test_batch_sweep_checksum_is_the_pairs():
     config = mt.Config(dtype="float64")
     rows = record.bench_batch_sweep(config, seconds=3, sizes=(1, 2), device="cpu")
     assert set(rows) == {"1", "2"}
@@ -195,7 +182,7 @@ def test_batch_sweep_checksum_is_the_pairs(one_thread):
     assert _close(rows["2"]["checksum"], sum(singles))
 
 
-def test_longform_int16_and_float32_agree_bit_for_bit(one_thread):
+def test_longform_int16_and_float32_agree_bit_for_bit():
     out = record.bench_longform(minutes=0.05, sr=SR, ref_seconds=3, device="cpu")
     block = out["int16_staging"]
     assert block["bit_identical"] and block["results_equal"]
@@ -203,7 +190,7 @@ def test_longform_int16_and_float32_agree_bit_for_bit(one_thread):
     assert out["minutes_audio"] == 0.05 and out["warm_run_s"] > 0
 
 
-def test_record_command_writes_only_with_out(tmp_path, monkeypatch, capsys, one_thread):
+def test_record_command_writes_only_with_out(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(record, "SECONDS", 3)
     monkeypatch.chdir(tmp_path)
     record.main(["--device", "cpu", "--skip-sweep"])

@@ -7,7 +7,8 @@ sources into ``matchering_tpu_torch/_build/``; the auto-build tests build
 into ``tmp_path``), plus parity with the JAX package: the port's FLAC and
 native WAV files byte-identical to JAX's for the same array and subtype,
 its decode of every format equal to JAX's decode of the same file, and the
-native WAV writer held to the numpy one (tests/test_host_shell.py:34-44).
+JAX-named ``binding.read_wav``/``write_wav`` held to the numpy WAV codec,
+the port's one (tests/test_host_shell.py:34-44).
 ffmpeg is absent here, so the transcode plumbing runs through a stub
 binary that copies the staged WAV.
 """
@@ -338,21 +339,21 @@ class TestJaxParity:
         assert (tmp_path / "p.opus").read_bytes() == (tmp_path / "j.opus").read_bytes()
 
     def test_native_wav_matches_numpy(self, tmp_path):
-        """The native reader equals the numpy reader on native-written
-        files, and the native writer's codes equal the numpy writer's
-        (tests/test_host_shell.py:34-44 holds the JAX pair to the first)."""
+        """The JAX-named ``binding.read_wav`` gives ``wav.read``'s values and
+        ``binding.write_wav`` writes ``wav.write``'s bytes, float64 and
+        float32 alike (tests/test_host_shell.py:34-44 holds the JAX pair to
+        the same)."""
         x = np.clip(np.random.RandomState(8).randn(777, 2) * 0.5, -1, 1)
         for subtype in ("PCM_16", "PCM_24", "PCM_32", "FLOAT"):
-            path, plain = str(tmp_path / "n.wav"), str(tmp_path / "p.wav")
-            native.write_wav(path, np.ascontiguousarray(x), 44100, subtype)
-            wav.write(plain, x, 44100, subtype)
-            y_native, sr1 = native.read_wav(path)
-            y_numpy, sr2 = wav.read(path)
-            assert sr1 == sr2 == 44100
-            np.testing.assert_array_equal(y_native, y_numpy)
-            codes, _ = wav.read(path, raw_int=True)
-            plain_codes, _ = wav.read(plain, raw_int=True)
-            assert np.max(np.abs(codes.astype(np.float64) - plain_codes)) <= 1
+            for dtype in (np.float64, np.float32):
+                path, plain = str(tmp_path / "n.wav"), str(tmp_path / "p.wav")
+                native.write_wav(path, x.astype(dtype), 44100, subtype)
+                wav.write(plain, x.astype(dtype), 44100, subtype)
+                y_named, sr1 = native.read_wav(path)
+                y_numpy, sr2 = wav.read(path)
+                assert sr1 == sr2 == 44100
+                np.testing.assert_array_equal(y_named, y_numpy)
+                assert open(path, "rb").read() == open(plain, "rb").read()
 
 
 class TestOpusRead:

@@ -40,7 +40,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import threadpoolctl
 import torch
 from scipy import signal
 
@@ -65,20 +64,6 @@ LIMITED = dict(need_default=True, need_no_limiter=True, need_no_limiter_normaliz
 UNLIMITED = dict(need_default=False, need_no_limiter=True, need_no_limiter_normalized=True)
 # the fields the limiter reads (matchering_tpu/limiter.py): their cases render the limited result
 LIMITER_READS = ("threshold", "internal_sample_rate")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for torch and one for the BLAS behind numpy and
-    scipy: the tier-1 run's six workers' pools of every core spin against
-    each other.  The host operator builds here (scipy's spline over an
-    identity, the folded LOWESS products) took 13 times their serial time
-    under the suite with the BLAS pool at every core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpoolctl.threadpool_limits(limits=1):
-        yield
-    torch.set_num_threads(threads)
 
 
 def make_pair(seed=14):

@@ -1,12 +1,12 @@
 """The host shell's direct WAV write, on the CPU.
 
-``io.saver.save`` quantises a float32 or float64 tensor bound for a WAV
-file of a subtype in ``saver.DIRECT_SUBTYPES`` on the tensor's device and
-writes the file from the codes' host block (``saver.codes``,
-``utils.host_copy``, ``wav.write_payload``).  Each file must be, to the
-byte, the file ``codecs.write`` writes for the same samples widened to
-float64: header, payload and pad byte.  Every other input keeps
-``codecs.write`` and counts no ``direct_out_bytes``.
+``io.saver.save`` quantises float32 or float64 samples bound for a WAV
+file of a subtype in ``saver.DIRECT_SUBTYPES``, a tensor on its device and
+a numpy array on the CPU, and writes the file from the codes' host block
+(``saver.codes``, ``utils.host_copy``, ``wav.write_payload``).  Each file
+must be, to the byte, the file the numpy codec (``wav.write``) writes for
+the same samples widened to float64: header, payload and pad byte.  Every
+other input keeps ``codecs.write`` and counts no ``direct_out_bytes``.
 """
 
 import numpy as np
@@ -34,19 +34,28 @@ def _samples(subtype: str, dtype, channels: int) -> np.ndarray:
     return flat.reshape(FRAMES, channels)
 
 
-CASES = [(s, d, c) for s in saver.DIRECT_SUBTYPES for d in ("float32", "float64") for c in (1, 2)]
+CASES = [
+    (s, d, c, f) for f in ("tensor", "numpy") for s in saver.DIRECT_SUBTYPES for d in ("float32", "float64")
+    for c in (1, 2)
+]
 
 
-@pytest.mark.parametrize("subtype,dtype,channels", CASES, ids=[f"{s}-{d}-{c}ch" for s, d, c in CASES])
-def test_a_tensor_writes_the_bytes_of_a_float64_export(tmp_path, subtype, dtype, channels):
-    """The tensor's file is ``codecs.write``'s for the samples widened to
-    float64, and every payload byte counts in ``direct_out_bytes``."""
+@pytest.mark.parametrize(
+    "subtype,dtype,channels,form", CASES,
+    ids=[f"{s}-{d}-{c}ch" + ("" if f == "tensor" else "-numpy") for s, d, c, f in CASES],
+)
+def test_a_tensor_writes_the_bytes_of_a_float64_export(tmp_path, subtype, dtype, channels, form):
+    """The file of a tensor or of a numpy array is ``wav.write``'s for the
+    samples widened to float64, and every payload byte counts in
+    ``direct_out_bytes``."""
     samples = _samples(subtype, np.dtype(dtype), channels)
     got, want = tmp_path / "got.wav", tmp_path / "want.wav"
+    result = torch.from_numpy(samples) if form == "tensor" else samples
+    assert saver.writes_codes(str(got), result, subtype)
     before = trace.counts().get("direct_out_bytes", 0)
-    saver.save(str(got), torch.from_numpy(samples), SR, subtype)
+    saver.save(str(got), result, SR, subtype)
     written = trace.counts().get("direct_out_bytes", 0) - before
-    codecs.write(str(want), samples.astype(np.float64), SR, subtype)
+    wav.write(str(want), samples.astype(np.float64), SR, subtype)
     assert got.read_bytes() == want.read_bytes()
     assert written == samples.size * pcm.SUBTYPES[subtype]
     assert wav.read(str(got))[0].shape == (FRAMES, channels)
@@ -55,15 +64,16 @@ def test_a_tensor_writes_the_bytes_of_a_float64_export(tmp_path, subtype, dtype,
 @pytest.mark.parametrize(
     "name,result,subtype",
     [
-        ("numpy", np.zeros((FRAMES, 2), np.float32), "PCM_16"),
+        ("numpy", np.zeros((FRAMES, 2), np.float16), "PCM_16"),
         ("aiff", torch.zeros(FRAMES, 2), "PCM_16"),
         ("double", torch.zeros(FRAMES, 2), "DOUBLE"),
         ("float16", torch.zeros(FRAMES, 2, dtype=torch.float16), "PCM_16"),
     ],
 )
 def test_every_other_input_keeps_the_codecs_writer(tmp_path, name, result, subtype):
-    """A numpy array, another container, another subtype or dtype: the
-    bytes of ``codecs.write`` and no ``direct_out_bytes``."""
+    """Another container, another subtype, or another dtype in a numpy
+    array or a tensor: the bytes of ``codecs.write`` and no
+    ``direct_out_bytes``."""
     ext = "aiff" if name == "aiff" else "wav"
     got, want = tmp_path / f"got.{ext}", tmp_path / f"want.{ext}"
     assert not saver.writes_codes(str(got), result, subtype)

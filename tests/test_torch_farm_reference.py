@@ -7,8 +7,6 @@ padding; its spans are recorded once a call.  Imports no JAX."""
 
 import numpy as np
 import pytest
-import threadpoolctl
-import torch
 
 import matchering_tpu_torch as mt
 from matchering_tpu_torch import trace
@@ -29,46 +27,39 @@ def _lengths(rng):
 @pytest.fixture(scope="module")
 def farm():
     """The pairs, the reference's padded rows, and the port's float64 and
-    float32 batches (the float32 one recorded), with one torch thread and
-    one BLAS thread: the tier-1 run's six workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with threadpoolctl.threadpool_limits(limits=1):
-            rng = np.random.default_rng(2**31 + 20)
-            gen = signals.generator(2**31 + 20, "cpu")
-            targets = [signals.track(n, SR, CELL.traffic["target"], gen, "cpu").double() for n in _lengths(rng)]
-            references = [signals.track(n, SR, CELL.traffic["reference"], gen, "cpu").double()
-                          for n in _lengths(rng)]
-            parameters = CELL.config["parameters"]
-            n_pad = reference_farm.bucket_length([t.shape[0] for t in targets], BUCKET)
-            expected = reference_farm.master_rows([t.numpy() for t in targets], [r.numpy() for r in references],
-                                                  parameters, n_pad)
-            out = {"targets": targets, "references": references, "expected": expected}
-            for dtype in ("float64", "float32"):
-                config = harness.port_config(mt, {**parameters, "dtype": dtype})
-                tracks = [[x.to(config.torch_dtype) for x in role] for role in (targets, references)]
-                trace.clear()
-                before = trace.counts()
-                with trace.recording():
-                    padded_targets, target_lengths = batch.bucket_pad(tracks[0], BUCKET, device="cpu")
-                    padded_references, reference_lengths = batch.bucket_pad(tracks[1], BUCKET, device="cpu")
-                    result = batch.master_batch(
-                        padded_targets, padded_references, config, need_default=True,
-                        target_lengths=target_lengths, reference_lengths=reference_lengths, device="cpu",
-                    ).result
-                after = trace.counts()
-                out[dtype] = {
-                    "result": result.double().numpy(),
-                    "shapes": (padded_targets.shape[1], padded_references.shape[1]),
-                    "lengths": (target_lengths, reference_lengths),
-                    "counted": {k: after.get(k, 0) - before.get(k, 0) for k in after if k.startswith("batch.")},
-                    "spans": trace.spans(),
-                }
-            trace.clear()
-            yield out
-    finally:
-        torch.set_num_threads(threads)
+    float32 batches (the float32 one recorded)."""
+    rng = np.random.default_rng(2**31 + 20)
+    gen = signals.generator(2**31 + 20, "cpu")
+    targets = [signals.track(n, SR, CELL.traffic["target"], gen, "cpu").double() for n in _lengths(rng)]
+    references = [signals.track(n, SR, CELL.traffic["reference"], gen, "cpu").double()
+                  for n in _lengths(rng)]
+    parameters = CELL.config["parameters"]
+    n_pad = reference_farm.bucket_length([t.shape[0] for t in targets], BUCKET)
+    expected = reference_farm.master_rows([t.numpy() for t in targets], [r.numpy() for r in references],
+                                          parameters, n_pad)
+    out = {"targets": targets, "references": references, "expected": expected}
+    for dtype in ("float64", "float32"):
+        config = harness.port_config(mt, {**parameters, "dtype": dtype})
+        tracks = [[x.to(config.torch_dtype) for x in role] for role in (targets, references)]
+        trace.clear()
+        before = trace.counts()
+        with trace.recording():
+            padded_targets, target_lengths = batch.bucket_pad(tracks[0], BUCKET, device="cpu")
+            padded_references, reference_lengths = batch.bucket_pad(tracks[1], BUCKET, device="cpu")
+            result = batch.master_batch(
+                padded_targets, padded_references, config, need_default=True,
+                target_lengths=target_lengths, reference_lengths=reference_lengths, device="cpu",
+            ).result
+        after = trace.counts()
+        out[dtype] = {
+            "result": result.double().numpy(),
+            "shapes": (padded_targets.shape[1], padded_references.shape[1]),
+            "lengths": (target_lengths, reference_lengths),
+            "counted": {k: after.get(k, 0) - before.get(k, 0) for k in after if k.startswith("batch.")},
+            "spans": trace.spans(),
+        }
+    trace.clear()
+    return out
 
 
 def _errors(farm, dtype, row):

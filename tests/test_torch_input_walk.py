@@ -47,7 +47,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import threadpoolctl
 import torch
 from scipy import signal
 
@@ -76,18 +75,6 @@ FILE, JAX_FAULT, SILENT_MID, RAISES = "file", "jax fault", "silent mid", "raises
 C = mt.Code
 PROGRESS = (C.INFO_LOADING, C.INFO_MATCHING_LEVELS, C.INFO_MATCHING_FREQS, C.INFO_CORRECTING_LEVELS,
             C.INFO_FINALIZING, C.INFO_EXPORTING, C.INFO_MAKING_PREVIEWS, C.INFO_COMPLETED)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for torch and one for the BLAS behind numpy and
-    scipy, as in ``test_torch_config_walk.py``: the tier-1 run's six
-    workers' pools of every core spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpoolctl.threadpool_limits(limits=1):
-        yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -709,7 +696,6 @@ def report():
     global FOLDER
     from conftest import snr_db
 
-    torch.set_num_threads(1)
     FOLDER = pathlib.Path(tempfile.mkdtemp(prefix="input_walk_"))
     try:
         for name in RESULT_BEARING:

@@ -79,18 +79,6 @@ def test_master_float32_above_jax_gate(jax_f64, port_f32, snr, variant):
     assert measured > 95.0, measured
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the calls of many small ops below: the
-    test workers' pools of every core spin against each other (a
-    ``dryrun_multichip(8)`` took ~1 s on one thread and ~67 s on eight
-    with six such processes at once)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _interp_ops(form, config, jax_config):
     """The smoothing state of ``config`` in one of master_graph's forms."""
     if form == "none":
@@ -103,7 +91,7 @@ def _interp_ops(form, config, jax_config):
 
 
 @pytest.mark.parametrize("form", ["none", "jax-pair", "port-pair", "smoothing"])
-def test_master_graph_takes_the_jax_call_form(pair, jax_f64, snr, form, one_thread):
+def test_master_graph_takes_the_jax_call_form(pair, jax_f64, snr, form):
     """``master_graph(target, reference, config, need_default,
     need_no_limiter, need_no_limiter_normalized, interp_ops)``, JAX's
     positional form, with ``interp_ops`` None, the JAX package's pair, the
@@ -116,7 +104,7 @@ def test_master_graph_takes_the_jax_call_form(pair, jax_f64, snr, form, one_thre
         assert measured >= 200.0, (variant, measured)
 
 
-def test_bench_graph_body_runs_on_the_port(one_thread):
+def test_bench_graph_body_runs_on_the_port():
     """``bench.py``'s graph body with only the import swapped, on a 10 s
     ``bench.make_pair``: the staged pair of ``operator_arrays_for_config``
     gives the result of ``interp_ops=None`` bit for bit."""
@@ -163,7 +151,7 @@ def jax_tiny():
     return np.asarray(out.result)
 
 
-def test_entry_forward_matches_jax(jax_tiny, snr, one_thread):
+def test_entry_forward_matches_jax(jax_tiny, snr):
     """``entry(device="cpu")``: the forward step on its example tensors
     (float32) above the JAX package's float32 gate of 95 dB, and
     ``master_graph`` in float64 on the same pair >= 200 dB."""
@@ -181,7 +169,7 @@ def test_entry_forward_matches_jax(jax_tiny, snr, one_thread):
 
 
 @pytest.mark.parametrize("n_devices", [1, 2, 4, 8])
-def test_dryrun_multichip_on_the_cpu(n_devices, one_thread):
+def test_dryrun_multichip_on_the_cpu(n_devices):
     import graft_entry_torch
 
     graft_entry_torch.dryrun_multichip(n_devices, device="cpu")

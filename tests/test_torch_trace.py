@@ -35,14 +35,6 @@ PROCESS_TREE = [
 REPORT_VALUES = 8  # stages.main reads the report: 4 levels and 4 RMS-correction coefficients at Config()
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
     """Paths of a 3 s target, a 4 s reference and a 3 s second reference
