@@ -227,7 +227,19 @@ Run from the repository root on a machine with one CUDA card, ``nvcc``
    on the card, whose five stage spans' device times are >= 97 % of its
    ``master`` span's; and the cost of recording, calls of both with
    recording off and on in turns (three runs of five calls each);
-19. prints one JSON line of per-kernel numbers (K1, K2, K3; with each
+19. K4 (limiter back end) against its plain twin on the card, bit for
+   bit (NaN where the twin is NaN), in float32 and float64 at 3 rows of
+   1,000,003 samples (with and without lengths and a scale, a NaN gain, a
+   row that passes, a batch off 16 bytes, and the attack gain a view
+   into rows n + 6 wide) and in float32 at the long form's 1 x
+   345,600,000 and the farm's 16 x 18,350,080 with seeded lengths, the
+   attack gain laid out as the graph hands it over; K4's time there (a call,
+   the kernel alone, the twin) beside its bound of 32 bytes a sample; then
+   ``launch.k4`` once per ``limit()`` on the card through ``limit``,
+   ``process``, ``master``, ``master_batch`` and ``stages.main`` with
+   ``length_bucketing``, with K1-K3 at ``expected_launches``, and none in
+   a ``master()`` on the CPU; no call of a kernel's plain twin allowed;
+20. prints one JSON line of per-kernel numbers (K1, K2, K3, K4; with each
    kernel's batched numbers from phases 3, 7 and 8, its launches in one
    sharded ``limit()`` (phase 9), per process of phase 10's full-width
    run, per call of phase 13, per round, run and call of phase 14, per
@@ -346,9 +358,10 @@ def launch_counts():
 def plain_twins_forbidden(label):
     """Records every call of a kernel's plain twin inside the block; any
     such call fails the phase when the block ends."""
-    from matchering_tpu_torch.kernels import envelope, scan, sos
+    from matchering_tpu_torch.kernels import back_end, envelope, scan, sos
 
-    twins = [(envelope, "limiter_front_end_plain"), (scan, "first_order_filter_plain"), (sos, "sos_filter_plain")]
+    twins = [(envelope, "limiter_front_end_plain"), (scan, "first_order_filter_plain"), (sos, "sos_filter_plain"),
+             (back_end, "limiter_back_end_plain")]
     real = [getattr(module, name) for module, name in twins]
     calls = []
 
@@ -2690,6 +2703,207 @@ def trace_path(mt, torch, device, card):
     return numbers
 
 
+# phase 19: K4, the limiter back end, at the benchmark's shapes
+LONG_N = LONG_SECONDS * LONG_RATE  # 345,600,000: the long form's target
+FARM_ROWS, FARM_N = 16, 70 * BUCKET  # 18,350,080: the farm cell's padded targets
+BACK_END_ODD = (3, 1_000_003)  # n % 4 == 3: rows start off the float4 grid
+BACK_END_BYTES = 32  # a float32 sample: four gains and the stereo in, the stereo out
+BACK_END_SECONDS = 10  # the pair of the launch checks
+
+
+def back_end_inputs(torch, device, rows, n, dtype, seed, offset=0, nan=False, attack_view=None):
+    """A stereo batch and its four gains made on the card from ``seed``
+    (gains in [0, 1), the first half of each row quantised to eighths so
+    the maxima tie and meet 0), a flag per row (row 1 passes where there
+    are three rows or more) and a scale per row.  ``offset``: each tensor
+    starts that many elements into its storage, off 16 bytes.  ``nan``: a
+    NaN in a gain of row 0, inside every length.  ``attack_view`` (pad,
+    start): the attack gain is columns [start, start + n) of rows n + pad
+    wide, as the filtfilt hands it over (static: (12, 6); with lengths:
+    (6, 6))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def placed(values):
+        if not offset:
+            return values
+        storage = torch.empty(values.numel() + offset, dtype=dtype, device=device)
+        storage[offset:].copy_(values.reshape(-1))
+        return storage[offset:].view(values.shape)
+
+    x = placed(torch.randn(rows, n, 2, generator=gen, device=device, dtype=dtype) * 0.7)
+    gains = []
+    for k in range(4):
+        g = torch.rand(rows, n, generator=gen, device=device, dtype=dtype)
+        g[:, : n // 2] = torch.floor(g[:, : n // 2] * 8) / 8
+        if k == 1 and attack_view:
+            pad, first = attack_view
+            wide = torch.zeros(rows, n + pad, device=device, dtype=dtype)
+            wide[:, first:first + n] = g
+            gains.append(wide[:, first:first + n])
+        else:
+            gains.append(placed(g))
+    if nan:
+        gains[2][0, 10] = float("nan")
+    passes = torch.zeros(rows, dtype=torch.bool, device=device)
+    if rows >= 3:
+        passes[1] = True
+    scale = torch.rand(rows, generator=gen, device=device, dtype=dtype) + 0.5
+    return x, gains, passes, scale
+
+
+def same_bits(torch, got, want) -> bool:
+    """NaN where the other is NaN (the card's arithmetic gives one NaN),
+    and every other element's bits equal."""
+    ints = torch.int32 if got.dtype == torch.float32 else torch.int64
+    nan = torch.isnan(got)
+    if got.shape != want.shape or not torch.equal(nan, torch.isnan(want)):
+        return False
+    return torch.equal(torch.where(nan, 0, got.view(ints)), torch.where(nan, 0, want.view(ints)))
+
+
+def back_end_path(mt, torch, device, cuda_ms, kernel_ms, bandwidth):
+    """Phase 19: K4 against its plain twin on the card, bit for bit, in
+    float32 and float64 at an odd n (rows off the float4 grid, a NaN gain,
+    and a batch off 16 bytes), at the long form's shape (1 x 345.6 M, the
+    static path with the graph's scale) and at the farm's (16 x 18,350,080
+    with seeded lengths and a scale); K4's time at both beside its 32 bytes
+    a sample bound and the twin's time; then ``launch.k4`` once per
+    ``limit()`` on each card path (``limit``, ``process``, ``master``,
+    ``master_batch``, ``stages.main`` with ``length_bucketing``) and never
+    on the CPU.  Returns K4's numbers for the kernels' line; fails on any
+    mismatch."""
+    from matchering_tpu_torch import stages
+    from matchering_tpu_torch.io import wav
+    from matchering_tpu_torch.kernels import back_end
+    from matchering_tpu_torch.parallel import batch
+    from matchering_tpu_torch.utils import RowInts
+
+    start = time.perf_counter()
+    config = mt.Config()
+    rng = np.random.RandomState(SEED + 19)
+    shortest = stages.minimum_length(config)
+
+    def check(label, x, gains, passes, lengths, scale):
+        got = back_end.limiter_back_end(x, *gains, passes, lengths, scale)
+        want = back_end.limiter_back_end_plain(x, *gains, passes, lengths, scale)
+        require(same_bits(torch, got, want), f"phase 19: K4 differs from its twin at {label}")
+        return got
+
+    checked = []
+    rows, n = BACK_END_ODD
+    for dtype in (torch.float32, torch.float64):
+        for offset, view in ((0, None), (1, None), (0, (6, 6))):
+            x, gains, passes, scale = back_end_inputs(torch, device, rows, n, dtype, SEED + offset,
+                                                      offset, nan=True, attack_view=view)
+            lengths = RowInts.of([n, shortest, int(rng.randint(shortest, n))], device)
+            for with_lengths in (False, True):
+                for scaled in (False, True):
+                    label = (f"{rows} x {n}, {dtype}, offset {offset}, attack view {view}, "
+                             f"lengths {with_lengths}, scale {scaled}")
+                    got = check(label, x, gains, passes, lengths if with_lengths else None,
+                                scale if scaled else None)
+                    require(bool(torch.isnan(got[0, 10]).all()), f"phase 19: the NaN gain vanished at {label}")
+                    checked.append(label)
+            x1, gains1 = x[0], [g[0] for g in gains]
+            check(f"one track of {n}, {dtype}, offset {offset}, attack view {view}", x1, gains1,
+                  passes[0], None, None)
+    del x, gains, got
+
+    def timed(x, gains, passes, lengths, scale, samples):
+        call = lambda: back_end.limiter_back_end(x, *gains, passes, lengths, scale)  # noqa: E731
+        plain = lambda: back_end.limiter_back_end_plain(x, *gains, passes, lengths, scale)  # noqa: E731
+        numbers = {
+            "ms": cuda_ms(call, 10),
+            "kernel_ms": kernel_ms(call, "back_end_kernel", reps=10),
+            "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": 1e3 * BACK_END_BYTES * samples / bandwidth,
+            "grid": back_end.LAST_GRID,
+        }
+        numbers["share_of_bound"] = numbers["bound_ms"] / numbers["kernel_ms"]
+        return numbers
+
+    # the long form: one row, the static path, the graph's scale, the
+    # attack gain where the static filtfilt leaves it
+    x, gains, passes, scale = back_end_inputs(torch, device, 1, LONG_N, torch.float32, SEED + 2,
+                                              attack_view=(12, 6))
+    for scaled in (False, True):
+        check(f"1 x {LONG_N}, scale {scaled}", x, gains, passes, None, scale if scaled else None)
+    long_form = timed(x, gains, passes, None, scale, LONG_N)
+    del x, gains
+    torch.cuda.empty_cache()
+    print(f"K4 long form: {long_form}", flush=True)
+
+    # the farm: 16 rows with seeded lengths of 120-420 s (and the shortest and
+    # a full row), the attack gain's rows where the length-aware filtfilt leaves them
+    x, gains, passes, scale = back_end_inputs(torch, device, FARM_ROWS, FARM_N, torch.float32, SEED + 3,
+                                              attack_view=(6, 6))
+    drawn = np.minimum(rng.uniform(120, 420, FARM_ROWS) * SR, FARM_N).astype(np.int64)
+    drawn[0], drawn[-1] = shortest, FARM_N
+    lengths = RowInts.of(drawn.tolist(), device)
+    for scaled in (False, True):
+        check(f"{FARM_ROWS} x {FARM_N} with lengths, scale {scaled}", x, gains, passes, lengths,
+              scale if scaled else None)
+    farm = timed(x, gains, passes, lengths, scale, FARM_ROWS * FARM_N)
+    farm["lengths"] = drawn.tolist()
+    del x, gains
+    torch.cuda.empty_cache()
+    print(f"K4 farm: {farm}", flush=True)
+
+    # launch.k4: one per limit() on every card path, none on the CPU
+    launches = {}
+
+    def counted(label, fn):
+        zero_counts()
+        fn()
+        torch.cuda.synchronize()
+        launches[label] = [count_since(f"launch.k{i}") for i in (1, 2, 3, 4)]
+        require(launches[label] == [*expected_launches(config), 1],
+                f"phase 19: {label} launched K1-K4 {launches[label]} times, not "
+                f"{[*expected_launches(config), 1]}")
+
+    target, reference = make_pair(BACK_END_SECONDS, SR, SEED + 19)
+    staged = torch.from_numpy(target).to(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_k4_") as tmp, plain_twins_forbidden("phase 19"):
+        paths = [os.path.join(tmp, name) for name in ("target.wav", "reference.wav", "out.wav")]
+        wav.write(paths[0], target, SR, "PCM_16")
+        wav.write(paths[1], reference, SR, "PCM_16")
+        counted("limit", lambda: mt.limit(staged, config))
+        counted("process", lambda: mt.process(paths[0], paths[1], [mt.pcm16(paths[2])], device="cuda"))
+        counted("master", lambda: mt.master(target, reference, config, device="cuda"))
+        tracks = [target, target[: len(target) * 2 // 3]]
+        t_batch, t_lens = batch.bucket_pad(tracks, BUCKET, device=device)
+        r_batch, r_lens = batch.bucket_pad([reference, reference], BUCKET, device=device)
+        counted("master_batch", lambda: batch.master_batch(
+            t_batch, r_batch, config, target_lengths=t_lens, reference_lengths=r_lens, device=device))
+        bucketed = mt.Config(length_bucketing=BUCKET)
+        counted("stages.main bucketed", lambda: stages.main(target, reference, bucketed, device="cuda"))
+    zero_counts()
+    mt.master(target, reference, config, device="cpu")
+    launches["master on the CPU"] = [count_since(f"launch.k{i}") for i in (1, 2, 3, 4)]
+    require(launches["master on the CPU"] == [0, 0, 0, 0],
+            f"phase 19: master() on the CPU launched {launches['master on the CPU']}")
+    print(f"K4 launches: {launches}", flush=True)
+
+    return {
+        "name": "limiter_back_end",
+        "route": "cuda",
+        "source": "matchering_tpu_torch/csrc/back_end.cu",
+        "replaces": "no Pallas kernel: the XLA ops of matchering_tpu/limiter.py:138",
+        "max_abs_err": 0.0,
+        "tolerance": 0.0,
+        **long_form,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "n": LONG_N,
+        "shapes": [list(BACK_END_ODD), [1, LONG_N], [FARM_ROWS, FARM_N]],
+        "checked_cases": checked,
+        "launch": launch_numbers("mtpu_back_end_info", 0, grid=long_form["grid"]),
+        "batched": farm,
+        "launches_per_path": launches,
+        "seconds": time.perf_counter() - start,
+    }
+
+
 def main() -> None:
     script_start = time.perf_counter()
     try:
@@ -3147,7 +3361,11 @@ def main() -> None:
     traced = trace_path(mt, torch, device, card)
     print(json.dumps({"trace_path": traced}), flush=True)
 
-    # --- 19. results ---
+    # --- 19. K4, the limiter back end: bit for bit, timed, one launch per limit() ---
+    k4 = back_end_path(mt, torch, device, cuda_ms, kernel_ms, bandwidth)
+    print(json.dumps({"back_end_path_seconds": k4["seconds"]}), flush=True)
+
+    # --- 20. results ---
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matchering_tpu")]
     require(not leaked, f"the port imported {leaked} on its way")
     print(json.dumps({"script_seconds": time.perf_counter() - script_start,
@@ -3155,7 +3373,7 @@ def main() -> None:
                       "config_walk_path_seconds": walk["seconds"],
                       "input_walk_path_seconds": walk_inputs["seconds"],
                       "trace_path_seconds": traced["seconds"]}), flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

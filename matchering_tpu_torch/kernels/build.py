@@ -56,10 +56,13 @@ _SIGNATURES = {
     "mtpu_sos_shared_head": (_I, []),
     "mtpu_sos_f32": (_I, [_P, _P, _LL, _LL, _D, _D, _D, _D, _D, _P, _LL, _P, _P]),
     "mtpu_sos_f64": (_I, [_P, _P, _LL, _LL, _D, _D, _D, _D, _D, _P, _LL, _P, _P]),
+    "mtpu_back_end_f32": (_I, [_P] * 5 + [_LL] * 4 + [_P] * 4 + [_LL, _LL, _P, _P]),
+    "mtpu_back_end_f64": (_I, [_P] * 5 + [_LL] * 4 + [_P] * 4 + [_LL, _LL, _P, _P]),
     # each kernel's launch: registers, shared memory, resident blocks (csrc/info.cuh)
     "mtpu_envelope_info": (_I, [_I, _I, _P]),
     "mtpu_scan_info": (_I, [_I, _P]),
     "mtpu_sos_info": (_I, [_I, _P]),
+    "mtpu_back_end_info": (_I, [_I, _P]),
 }
 
 # C constants the Python wrappers mirror: C function -> (module, attribute)

@@ -1,4 +1,4 @@
-"""Hyrax brickwall limiter (PyTorch + kernels K1, K2 and K3).
+"""Hyrax brickwall limiter (PyTorch + kernels K1 to K4).
 
 Counterpart of ``matchering_tpu.limiter.limit`` (reference
 ``matchering/limiter/hyrax.py:32-99``): hard-clip gain from the
@@ -15,23 +15,28 @@ device the front end (gain and attack sliding max) is
 CPU.  The IIR passes go through ``ops.iir``: the attack's filtfilt is two
 K2 launches, and a Butterworth low-pass of order h is one K2 launch at
 order 1, else one K3 launch per scipy section, ``ceil(h / 2)`` in all.
-With the default orders 1/1 that is one K1 and four K2 launches per call,
-whatever the batch size.
+The back end (the envelopes' mix, the length mask, the early-out and the
+gain's product with the track) is ``kernels.back_end.limiter_back_end``:
+K4 on CUDA, its plain twin on the CPU.  With the default orders 1/1 that is
+one K1, four K2 and one K4 launch per call, whatever the batch size.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from .config import Config
-from .kernels import envelope
-from .ops import basics, iir, sliding
+from .kernels import back_end, envelope
+from .ops import iir, sliding
 from .utils import RowInts, ms_to_samples, stage_host_arrays
 
 
-def _release_stage(slided_attack: torch.Tensor, config: Config) -> torch.Tensor:
+def _release_stage(slided_attack: torch.Tensor, config: Config) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal hold max + hold/release Butterworth low-passes
-    (reference ``hyrax.py:56-75``)."""
+    (reference ``hyrax.py:56-75``): the hold and release envelopes, whose
+    maximum is the release-stage gain (taken in K4)."""
     fs = config.internal_sample_rate
     hold = ms_to_samples(config.limiter.hold, fs)
     slided = sliding.sliding_max_hold(slided_attack, hold)
@@ -47,7 +52,7 @@ def _release_stage(slided_attack: torch.Tensor, config: Config) -> torch.Tensor:
         fs,
         torch.maximum(slided, hold_out),
     )
-    return torch.maximum(hold_out, release_out)
+    return hold_out, release_out
 
 
 @stage_host_arrays
@@ -75,23 +80,27 @@ def limit(array: torch.Tensor, config: Config, length=None) -> torch.Tensor:
     no host sync.  It reads K1's gain: |rectified - 1| <= tol  <=>
     gain <= tol/(1+tol), since rectified >= 1 and gain = 1 - 1/rectified
     is monotone."""
+    return _limit(array, config, length)
+
+
+def _limit(array: torch.Tensor, config: Config, length=None, scale=None) -> torch.Tensor:
+    """``limit``, each row of the output then times its ``scale`` (one
+    factor a row, in the array's dtype; None: no product) in the same K4
+    launch: ``stages.master_graph``'s final amplitude coefficient."""
     single = length is not None and array.ndim == 2
     if single:
         array = array[None]
     if length is not None:
         length = RowInts.per_row(length, array.device)
+    array = array.contiguous()
     tolerance = 1e-8 + 1e-5 * 1.0  # np.isclose defaults (hyrax.py:83)
     attack = ms_to_samples(config.limiter.attack, config.internal_sample_rate)
-    gain_hard_clip, slided = envelope.limiter_front_end(
-        array.contiguous(), config.threshold, attack, length
-    )
+    gain_hard_clip, slided = envelope.limiter_front_end(array, config.threshold, attack, length)
     smoother = iir.one_pole_filter(config.limiter.attack_filter_coefficient, attack)
     gain_attack = iir.filtfilt_first_order(smoother, slided, length)
-    gain_release = _release_stage(slided, config)
+    hold_out, release_out = _release_stage(slided, config)
     not_needed = torch.all(gain_hard_clip <= tolerance / (1.0 + tolerance), dim=-1)
-
-    gain = basics.flip(basics.max_mix(gain_hard_clip, gain_attack, gain_release))
-    if length is not None:
-        gain = gain * length.mask(array.shape[-2], gain.dtype)
-    limited = torch.where(not_needed[..., None, None], array, array * gain[..., None])
+    limited = back_end.limiter_back_end(
+        array, gain_hard_clip, gain_attack, hold_out, release_out, not_needed, length, scale
+    )
     return limited[0] if single else limited

@@ -26,7 +26,7 @@ import torch
 
 from . import trace
 from .config import Config
-from .limiter import limit
+from .limiter import _limit
 from .log import Code, debug, debug_line, info
 from .ops import basics, convolve, fir, smoothing, spectrum
 from .state import operators_for_config
@@ -297,9 +297,8 @@ def master_graph(
 
         result_default = None
         if need_default:
-            result_default = (
-                limit(result, config, length=target_length)
-                * final_amplitude_coefficient[:, None, None]
+            result_default = _limit(
+                result, config, length=target_length, scale=final_amplitude_coefficient
             )
 
         out = MasterOutput(

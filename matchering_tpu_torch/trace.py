@@ -3,8 +3,8 @@
 Counters are always on: ``count(name, n)`` is an integer add on a module
 dict, and ``counts()`` a snapshot of it.  The port counts
 
-* ``launch.k1``, ``launch.k2``, ``launch.k3``: calls that launched K1, K2
-  or K3 (``kernels/``; a CPU tensor runs the plain twin and counts none);
+* ``launch.k1`` to ``launch.k4``: calls that launched K1, K2, K3 or K4
+  (``kernels/``; a CPU tensor runs the plain twin and counts none);
 * ``host_reads``: reads of a tensor's values into host values (on a card,
   each waits for the device), counted on every device, so a run on the
   CPU counts what the same run counts on a card;

@@ -31,7 +31,7 @@ from matchering_tpu.parallel import batch as jbatch
 from matchering_tpu.stages import main as jmain
 from matchering_tpu_torch import state, stages
 from matchering_tpu_torch.kernels import envelope, scan
-from matchering_tpu_torch.limiter import limit
+from matchering_tpu_torch.limiter import _limit, limit
 from matchering_tpu_torch.ops import basics, iir, sliding, spectrum
 from matchering_tpu_torch.parallel import batch
 from matchering_tpu_torch.parallel.mesh import single_axis_mesh
@@ -217,6 +217,52 @@ def test_limit_rows_match_jax(rng):
         want = np.asarray(jax_limit(jnp.asarray(x[r]), config, length=jnp.int32(L)))
         np.testing.assert_allclose(got[r], want, rtol=0, atol=1e-10)
         assert not got[r, L:].any()
+
+
+@pytest.mark.parametrize("with_lengths", [False, True], ids=["static", "lengths"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_scaled_limit_is_limit_times_the_scale(rng, dtype, with_lengths):
+    """The limiter's private scaled entry (one K4 launch on a card) gives
+    ``limit(x, config, length=L) * scale[:, None, None]`` bit for bit."""
+    n = 1 << 14
+    x = 0.4 * rng.randn(3, n, 2)
+    x[:, 1000:3000] *= 4.0
+    x[1] *= 0.1  # under the threshold: the row passes unlimited
+    config = mt.Config(dtype=dtype)
+    x = t(x).to(config.torch_dtype)
+    lengths = rows([n, 9_001, 5_003]) if with_lengths else None
+    scale = torch.tensor([0.75, 2.0, 1.5], dtype=config.torch_dtype)
+    got = _limit(x, config, length=lengths, scale=scale)
+    want = limit(x, config, length=lengths) * scale[:, None, None]
+    assert torch.equal(got, want)
+    assert torch.equal(got[1], x[1] * scale[1])
+
+
+@pytest.mark.parametrize("with_lengths", [False, True], ids=["static", "lengths"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_master_graph_scales_the_limited_result(dtype, with_lengths):
+    """``master_graph``'s limited result is ``limit(result_no_limiter,
+    config, length) * final_amplitude_coefficient`` composed by hand, bit
+    for bit, on the static path and with the rows' true lengths."""
+    config = mt.Config(dtype=dtype, max_piece_size=1, fft_size=1024)
+    targets = [track(s, 40 + i, 0.3) for i, s in enumerate((2.5, 1.7))]
+    references = [track(s, 50 + i, 0.9) for i, s in enumerate((2.2, 2.6))]
+    if with_lengths:
+        target, t_lens = batch.bucket_pad(targets, 1 << 16, device="cpu")
+        reference, r_lens = batch.bucket_pad(references, 1 << 16, device="cpu")
+        lengths = dict(target_length=rows(t_lens), reference_length=rows(r_lens))
+    else:
+        n = min(len(a) for a in targets + references)
+        target, reference = (t(np.stack([a[:n] for a in group])) for group in (targets, references))
+        lengths = {}
+    out = stages.master_graph(target, reference, config, True, True, **lengths)
+    scale = out.report["final_amplitude_coefficient"]
+    want = limit(out.result_no_limiter, config, length=lengths.get("target_length")) * scale[:, None, None]
+    assert out.result.dtype == config.torch_dtype
+    assert torch.equal(out.result, want)
+    if with_lengths:
+        for r, length in enumerate(t_lens):
+            assert not out.result[r, length:].any()
 
 
 # --- master_batch: three rows, mixed target and reference lengths ---

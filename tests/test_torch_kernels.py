@@ -1,11 +1,12 @@
-"""The port's kernels K1 (limiter front end) and K2 (first-order IIR scan)
-through their plain twins on the CPU, and the wrappers of all three (K3,
-the second-order-section scan, is held to scipy and modelled in
-``test_torch_configs.py``).
+"""The port's kernels K1 (limiter front end), K2 (first-order IIR scan) and
+K4 (limiter back end) through their plain twins on the CPU, and the
+wrappers of all four (K3, the second-order-section scan, is held to scipy
+and modelled in ``test_torch_configs.py``).
 
 The CUDA kernels themselves run only on a card: ``chip_smoke.py`` holds
 each against its twin there.  Here the twins are held against the JAX
-package (K1's Pallas kernel in interpret mode) and scipy at float64, the
+package (K1's Pallas kernel in interpret mode) and scipy at float64, K4's
+twin against the limiter's former unfused back end bit for bit, the
 wrappers' host arithmetic (scratch, pole powers, window checks) against
 numpy, and
 numpy models of the kernels' decompositions against the twins; the wrappers
@@ -24,8 +25,10 @@ from scipy import signal
 
 import matchering_tpu.ops.pallas_envelope as pe
 from matchering_tpu.ops import iir as jiir
-from matchering_tpu_torch.kernels import build, envelope, scan, sos
-from matchering_tpu_torch.ops import iir
+from matchering_tpu_torch import Config, stages
+from matchering_tpu_torch.kernels import back_end, build, envelope, scan, sos
+from matchering_tpu_torch.ops import basics, iir
+from matchering_tpu_torch.utils import RowInts
 
 THRESHOLD = 0.998138427734375  # Config().threshold
 FS = 44100
@@ -126,12 +129,12 @@ class TestKernelWrappers:
 
         monkeypatch.setenv("PATH", str(tmp_path))
         monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-        for module in (build, envelope, scan, sos):
+        for module in (build, envelope, scan, sos, back_end):
             importlib.reload(module)
         with pytest.raises(RuntimeError, match="nvcc"):
             build._nvcc()
 
-    @pytest.mark.parametrize("kernel", ["envelope", "scan", "sos"])
+    @pytest.mark.parametrize("kernel", ["envelope", "scan", "sos", "back_end"])
     def test_cuda_tensor_raises_instead_of_running_the_twin(
         self, monkeypatch, tmp_path, kernel
     ):
@@ -157,9 +160,20 @@ class TestKernelWrappers:
         elif kernel == "scan":
             monkeypatch.setattr(scan, "first_order_filter_plain", twin)
             call = lambda: scan.first_order_filter(fake, 0.5, 0.0, -0.5)  # noqa: E731
-        else:
+        elif kernel == "sos":
             monkeypatch.setattr(sos, "sos_filter_plain", twin)
             call = lambda: sos.sos_filter(fake, 0.25, 0.5, 0.25, -0.5, 0.1)  # noqa: E731
+        else:
+            monkeypatch.setattr(back_end, "limiter_back_end_plain", twin)
+            gain = mock.MagicMock(spec=torch.Tensor)
+            gain.device, gain.dtype, gain.shape = fake.device, fake.dtype, (4096,)
+            gain.contiguous.return_value = gain
+            flag = mock.MagicMock(spec=torch.Tensor)
+            flag.device, flag.dtype = fake.device, torch.bool
+            flag.numel.return_value = 1
+            flag.reshape.return_value = flag
+            flag.contiguous.return_value = flag
+            call = lambda: back_end.limiter_back_end(fake, gain, gain, gain, gain, flag)  # noqa: E731
         with pytest.raises(RuntimeError, match="nvcc"):
             call()
         twin.assert_not_called()
@@ -195,6 +209,15 @@ class TestKernelWrappers:
                 build._P if "*" in "".join(words) else kinds[" ".join(words[:-1])] for words in params
             ]
             assert (restype, declared) == (build._I, argtypes), name
+
+    def test_every_c_entry_point_is_bound(self):
+        """Every ``extern "C"`` entry point of the kernels' ``.cu`` sources
+        has its ctypes signature in ``build._SIGNATURES`` (K4's among them;
+        ``trace.cuh``'s entry exists only in the tracing tool's builds)."""
+        text = "".join(open(path).read() for path in build.sources())
+        defined = set(re.findall(r"\bint (mtpu_\w+)\(", text))
+        assert {"mtpu_back_end_f32", "mtpu_back_end_f64", "mtpu_back_end_info"} <= defined
+        assert defined == set(build._SIGNATURES)
 
 
 class TestKernelTiling:
@@ -366,3 +389,157 @@ class TestKernelModels:
             g = np.where(inside, gain[np.clip(mirrored, 0, n - 1)], 0.0)
             out[start : start + envelope.TILE] = _window_max_model(g, window)[: n - start]
         np.testing.assert_array_equal(out, slided.numpy())
+
+
+# --- K4, the limiter back end -------------------------------------------------
+
+BACK_END_ROWS = 3
+BACK_END_PASSES = torch.tensor([False, True, False])  # row 1 passes unlimited
+
+
+def _back_end_inputs(dtype, n=1001, nan=False):
+    """A batch of three rows, its four gains (quantised to eighths in half
+    of each row, so the maxima tie and meet 0), and with ``nan`` a NaN in
+    a gain of every row: row 0 inside its length, row 2 past it."""
+    r = np.random.RandomState(7)
+    x = r.randn(BACK_END_ROWS, n, 2) * 0.7
+    gains = []
+    for _ in range(4):
+        g = r.rand(BACK_END_ROWS, n)
+        g[:, : n // 2] = np.floor(g[:, : n // 2] * 8) / 8
+        gains.append(g)
+    if nan:
+        gains[2][0, 10] = np.nan  # hold
+        gains[1][1, 3] = np.nan  # attack, on the row that passes
+        gains[3][2, n - 1] = np.nan  # release, past row 2's length
+    return t(x).to(dtype), [t(g).to(dtype) for g in gains]
+
+
+def _back_end_lengths(n):
+    """Row 0 full, row 1 at the limiter's shortest length, row 2 odd."""
+    return RowInts.of([n, stages.minimum_length(Config()), n // 2 - 1], "cpu")
+
+
+def _former_back_end(x, hard_clip, attack, hold, release, passes, lengths, scale):
+    """The limiter's back end before K4 (``limiter.limit`` and
+    ``stages.master_graph``), composed as they composed it."""
+    gain_release = torch.maximum(hold, release)
+    gain = basics.flip(basics.max_mix(hard_clip, attack, gain_release))
+    if lengths is not None:
+        gain = gain * lengths.mask(x.shape[-2], gain.dtype)
+    limited = torch.where(passes[..., None, None], x, x * gain[..., None])
+    if scale is not None:
+        limited = limited * scale[:, None, None]
+    return limited
+
+
+def _same_bits(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    assert torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+def _back_end_model(x, gains, passes, lengths, scale):
+    """csrc/back_end.cu's arithmetic in numpy, one flat index a thread: the
+    row from a float64 product by 1/n corrected one step, each gain read
+    at row * its row stride + i from its storage."""
+    x = x.numpy()
+    rows, n = x.shape[:2]
+    j = np.arange(rows * n, dtype=np.int64)
+    r = _model_row(j, n)
+    i = j - r * n
+    a, b, c, d = (
+        torch.as_strided(g, (g.untyped_storage().nbytes() // g.element_size(),), (1,), 0).numpy()[
+            g.storage_offset() + r * g.stride(0) + i
+        ]
+        for g in gains
+    )
+    one, zero = x.dtype.type(1), x.dtype.type(0)
+    g = one - np.maximum(np.maximum(a, b), np.maximum(c, d))
+    if lengths is not None:
+        g = g * np.where(i < np.asarray(lengths.host)[r], one, zero)
+    flat_x = x.reshape(-1, 2)
+    y = np.where(passes.numpy()[r][:, None], flat_x, flat_x * g[:, None])
+    if scale is not None:
+        y = y * scale.numpy()[r][:, None]
+    return torch.from_numpy(y.reshape(x.shape))
+
+
+def _model_row(flat, n):
+    row = (flat.astype(np.float64) * (1.0 / np.float64(n))).astype(np.int64)
+    return np.where(row * n > flat, row - 1, np.where((row + 1) * n <= flat, row + 1, row))
+
+
+class TestBackEndTwin:
+    @pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+    @pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "scaled"])
+    @pytest.mark.parametrize("with_lengths", [False, True], ids=["static", "lengths"])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+    def test_twin_equals_the_former_back_end(self, dtype, with_lengths, scaled, nan):
+        """Bit for bit, with a row that passes unlimited; a NaN gain gives
+        NaN on both channels as ``torch.maximum`` propagates it, past a
+        row's length too (the mask is a product), and nothing on the row
+        that passes."""
+        n = 1001
+        x, gains = _back_end_inputs(dtype, n, nan)
+        lengths = _back_end_lengths(n) if with_lengths else None
+        scale = torch.tensor([0.5, 1.25, 3.0], dtype=dtype) if scaled else None
+        got = back_end.limiter_back_end(x, *gains, BACK_END_PASSES, lengths, scale)
+        _same_bits(got, _former_back_end(x, *gains, BACK_END_PASSES, lengths, scale))
+        assert got.data_ptr() != x.data_ptr()
+        factor = scale if scaled else torch.ones(BACK_END_ROWS, dtype=dtype)
+        _same_bits(got[1], x[1] * factor[1] if scaled else x[1])
+        assert torch.isnan(got[0, 10]).all() == nan and torch.isnan(got[2, n - 1]).all() == nan
+        if with_lengths and not nan:
+            assert not got[2, lengths.host[2]:].any() and not got[0].isnan().any()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+    def test_one_track_runs_as_one_row(self, dtype):
+        """An (n, 2) track with (n,) gains and a 0-d flag."""
+        x, gains = _back_end_inputs(dtype)
+        for row in (0, 1):
+            got = back_end.limiter_back_end(x[row], *(g[row] for g in gains), BACK_END_PASSES[row])
+            _same_bits(got, _former_back_end(x[row:row + 1], *(g[row:row + 1] for g in gains),
+                                             BACK_END_PASSES[row:row + 1], None, None)[0])
+
+    def test_checks_its_shapes_and_lengths(self):
+        x, gains = _back_end_inputs(torch.float64)
+        with pytest.raises(ValueError, match="gain of shape"):
+            back_end.limiter_back_end(x, gains[0][:, 1:], *gains[1:], BACK_END_PASSES)
+        with pytest.raises(ValueError, match="outside"):
+            back_end.limiter_back_end(x, *gains, BACK_END_PASSES, RowInts.of([1001, 1002, 5], "cpu"))
+        with pytest.raises(ValueError, match="need a"):
+            back_end.limiter_back_end(x[0], *(g[0] for g in gains), BACK_END_PASSES[0],
+                                      RowInts.of([5], "cpu"))
+
+
+class TestBackEndModel:
+    """csrc/back_end.cu's flat indexing against the twin: the arithmetic
+    that only the card runs, checked where a test can reach it."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+    @pytest.mark.parametrize("n", [1, 3, 5, 1001])
+    def test_flat_index_equals_the_twin(self, dtype, n):
+        """With the attack gain a view into rows n + 6 wide, 6 samples in,
+        as the length-aware filtfilt hands it over."""
+        x, gains = _back_end_inputs(dtype, n)
+        wide = torch.zeros(BACK_END_ROWS, n + 6, dtype=dtype)
+        wide[:, 6:] = gains[1]
+        gains[1] = wide[:, 6:]
+        lengths = RowInts.of([n, n // 2, max(n - 1, 0)], "cpu")
+        scale = torch.tensor([0.5, 1.25, 3.0], dtype=dtype)
+        for args in ((None, None), (lengths, scale)):
+            want = back_end.limiter_back_end(x, *gains, BACK_END_PASSES, *args)
+            _same_bits(_back_end_model(x, gains, BACK_END_PASSES, *args), want)
+
+    @pytest.mark.parametrize(
+        "rows, n", [(1, 345_600_000), (16, 18_350_080), (16, 18_350_081), (3, 1001), (7, 3)]
+    )
+    def test_row_of_a_flat_index(self, rows, n):
+        """The float64 product by 1/n, corrected one step, is the row of a
+        flat index at the long form's and the farm's sizes, on both sides
+        of every row's start."""
+        starts = np.arange(rows + 1, dtype=np.int64) * n
+        flat = (starts[:, None] + np.arange(-8, 9)).reshape(-1)
+        flat = np.unique(np.clip(flat, 0, rows * n - 1))
+        np.testing.assert_array_equal(_model_row(flat, n), flat // n)
