@@ -185,7 +185,11 @@ def master_pairs(
     pair i on ``devices[i % len(devices)]``; the smoothing state is
     staged once per device and the results stay there.  Without it every
     pair runs on ``device`` (``cuda`` unless named).  Returns one
-    ``MasterOutput`` per pair, in order."""
+    ``MasterOutput`` per pair, in order.
+
+    The span ``pairs``, on the host: the staging and the enqueue of every
+    graph.  Each pair counts as one row of ``master_batch``'s counters
+    (``batch.rows``, ``batch.padded_samples``, ``batch.true_samples``)."""
     if len(targets) != len(references):
         raise ValueError("targets and references differ in count")
     if (target_lengths is None) != (reference_lengths is None):
@@ -197,27 +201,31 @@ def master_pairs(
         devices = [resolve_device(device)]
     else:
         devices = [resolve_device(d) for d in devices]
-    operators = {d: operators_for_config(config, d) for d in set(devices)}
+    with trace.span("pairs"):
+        operators = {d: operators_for_config(config, d) for d in set(devices)}
 
-    # stage every pair first: a pageable copy would wait for the graphs
-    staged = []
-    for i, (t, r, tl, rl) in enumerate(zip(targets, references, target_lengths, reference_lengths)):
-        on = devices[i % len(devices)]
-        (tl,) = check_lengths([tl], t.shape[0], config, "target")
-        (rl,) = check_lengths([rl], r.shape[0], config, "reference")
-        staged.append((
-            to_device(t, on), to_device(r, on),
-            RowInts.of([tl], on), RowInts.of([rl], on), operators[on],
-        ))
-    return [
-        master_graph(
-            t, r, config,
-            need_default=need_default,
-            need_no_limiter=need_no_limiter,
-            need_no_limiter_normalized=need_no_limiter_normalized,
-            interp_ops=ops,
-            target_length=tl,
-            reference_length=rl,
-        )
-        for t, r, tl, rl, ops in staged
-    ]
+        # stage every pair first: a pageable copy would wait for the graphs
+        staged = []
+        for i, (t, r, tl, rl) in enumerate(zip(targets, references, target_lengths, reference_lengths)):
+            on = devices[i % len(devices)]
+            (tl,) = check_lengths([tl], t.shape[0], config, "target")
+            (rl,) = check_lengths([rl], r.shape[0], config, "reference")
+            trace.count("batch.rows")
+            trace.count("batch.padded_samples", t.shape[0] + r.shape[0])
+            trace.count("batch.true_samples", tl + rl)
+            staged.append((
+                to_device(t, on), to_device(r, on),
+                RowInts.of([tl], on), RowInts.of([rl], on), operators[on],
+            ))
+        return [
+            master_graph(
+                t, r, config,
+                need_default=need_default,
+                need_no_limiter=need_no_limiter,
+                need_no_limiter_normalized=need_no_limiter_normalized,
+                interp_ops=ops,
+                target_length=tl,
+                reference_length=rl,
+            )
+            for t, r, tl, rl, ops in staged
+        ]

@@ -12,12 +12,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import trace
 from .config import Config
 from .io import save
 from .log import Code, debug, debug_line, info
 from .ops import basics
 from .results import Result
-from .utils import time_str, to_device
+from .utils import read_back, time_str, to_device
 
 
 def _window_count(n: int, window: int, step: int) -> int:
@@ -49,7 +50,7 @@ def _loudest_window_index(result: torch.Tensor, window: int, step: int) -> int:
         tail = energy[k * step : k * step + count * step]
         tail = torch.nn.functional.pad(tail, (0, count * step - tail.shape[0]))
         sums = sums + torch.sum(tail.reshape(count, step)[:, :r], dim=1)
-    return int(torch.argmax(sums))
+    return int(read_back(torch.argmax(sums)))
 
 
 def _cut_pieces(
@@ -86,47 +87,49 @@ def create_preview(
     preview_result: Optional[Result],
 ) -> None:
     """Write the loudest ``config.preview_size`` stretch of the ``result``
-    tensor, and the same stretch of ``target``, to the preview outputs."""
-    debug_line()
-    info(Code.INFO_MAKING_PREVIEWS)
+    tensor, and the same stretch of ``target``, to the preview outputs.
+    The span ``preview``."""
+    with trace.span("preview"):
+        debug_line()
+        info(Code.INFO_MAKING_PREVIEWS)
 
-    window = config.preview_size
-    step = config.preview_analysis_step
-    debug(
-        f"The maximum duration of the preview is "
-        f"{window / config.internal_sample_rate} seconds, "
-        f"with the analysis step of {step / config.internal_sample_rate} seconds"
-    )
+        window = config.preview_size
+        step = config.preview_analysis_step
+        debug(
+            f"The maximum duration of the preview is "
+            f"{window / config.internal_sample_rate} seconds, "
+            f"with the analysis step of {step / config.internal_sample_rate} seconds"
+        )
 
-    index = _loudest_window_index(result, window, step)
+        index = _loudest_window_index(result, window, step)
 
-    n = result.shape[0]
-    piece_len = min(window, n)
-    fade_size = (
-        min(config.preview_fade_size, int(piece_len // config.preview_fade_coefficient))
-        if piece_len != n
-        else 0
-    )
-    target_piece, result_piece = _cut_pieces(
-        target, result, index, window, step, fade_size, config.threshold
-    )
+        n = result.shape[0]
+        piece_len = min(window, n)
+        fade_size = (
+            min(config.preview_fade_size, int(piece_len // config.preview_fade_coefficient))
+            if piece_len != n
+            else 0
+        )
+        target_piece, result_piece = _cut_pieces(
+            target, result, index, window, step, fade_size, config.threshold
+        )
 
-    begin = step * index if piece_len != n else 0
-    debug(
-        f"The best part to preview: "
-        f"{time_str(begin, config.internal_sample_rate)} "
-        f"- {time_str(begin + piece_len, config.internal_sample_rate)}"
-    )
+        begin = step * index if piece_len != n else 0
+        debug(
+            f"The best part to preview: "
+            f"{time_str(begin, config.internal_sample_rate)} "
+            f"- {time_str(begin + piece_len, config.internal_sample_rate)}"
+        )
 
-    for piece, output, name in (
-        (target_piece, preview_target, "target preview"),
-        (result_piece, preview_result, "result preview"),
-    ):
-        if output:
-            save(
-                output.file,
-                piece,
-                config.internal_sample_rate,
-                output.subtype,
-                name,
-            )
+        for piece, output, name in (
+            (target_piece, preview_target, "target preview"),
+            (result_piece, preview_result, "result preview"),
+        ):
+            if output:
+                save(
+                    output.file,
+                    piece,
+                    config.internal_sample_rate,
+                    output.subtype,
+                    name,
+                )

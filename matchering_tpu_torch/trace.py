@@ -22,7 +22,8 @@ dict, and ``counts()`` a snapshot of it.  The port counts
 * ``batch.rows``, ``batch.padded_samples``, ``batch.true_samples``: the
   rows of each ``parallel.batch.master_batch`` graph, and the samples per
   channel of its padded targets and references and of their true
-  lengths, both roles summed.
+  lengths, both roles summed; ``parallel.batch.master_pairs`` counts
+  each of its graphs as one row.
 
 Spans record only while a ``torch.profiler`` session records, or inside
 ``with recording():``.  The choice is made when a call's root span opens,
